@@ -1,0 +1,367 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path on one NVIDIA card.
+
+    python3 chip_smoke.py            # the full check, one card, no arguments
+    python3 chip_smoke.py --n 100000 --queries 256   # a quicker rehearsal
+    python3 chip_smoke.py --profile build/profile   # + a profiled batch
+
+Phases (any failure exits non-zero; nothing is swallowed):
+
+1. print the environment record and the card's name and power limit;
+2. build both CUDA kernels from the repository's sources (one ``nvcc``
+   each, started together);
+3. hold each kernel bitwise against its plain PyTorch version on the card
+   at the main path's shapes (plus a ragged and a duplicate-heavy case) and
+   time kernel, plain version and one library call (device time from CUDA
+   events, median of 25 single calls after warm-up, inputs resident in L2);
+4. build the ``batann-serve`` index on the card: DEEP-like synthetic data,
+   d = 96, n = 1,000,000, P = 8, R = 32, kNN k = 17, PQ M = 24, K = 256,
+   head fraction 0.01 (each build stage timed);
+5. answer 4 batches of 1024 queries through ``BatonEngine.search`` with
+   L = 64, W = 8, pool = 256, slots = 32 on the kernel route
+   (``adc_impl="mxu_tiled"``, ``merge_impl="bitonic"``) after one warm-up
+   batch, with the kernels' launch counts reset just before and read just
+   after; recall@10 against the card's brute-force ground truth;
+6. re-run the first batch on the plain route (``gather``/``lexsort``) and
+   require ids, distances and all five counters bitwise equal.
+
+The line before the last is the kernels' JSON record; the last line is
+``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result, when
+no CUDA device is visible or the ``repro_torch`` package is not beside it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
+F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+SPIN_CYCLES = 5_000_000       # ~2.5 ms at the H100's boost clock
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, torch, reps: int = 25, warm: int = 5) -> float:
+    """Median device time of ``reps`` single calls (CUDA events).  A spin
+    kernel queued first keeps the card busy while the host enqueues the
+    call, so the events bracket device work, not the host's launch path."""
+    for _ in range(warm):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_adc(torch, gen, dev) -> dict:
+    from repro_torch.kernels.pq_adc.ops import adc_slots_ref, pq_adc_slots_tiled
+
+    rows = {}
+    for tag, (s, c, m, k) in (("slice", (256, 256, 24, 256)),
+                              ("ragged", (100, 200, 24, 256))):
+        luts = torch.rand((s, m, k), generator=gen, device=dev) * 4.0
+        codes = torch.randint(0, k, (s, c, m), generator=gen, device=dev,
+                              dtype=torch.uint8)
+        got = pq_adc_slots_tiled(luts, codes)
+        want = adc_slots_ref(luts, codes)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"ADC kernel != plain at {tag} "
+                                 f"(max |diff| {(got - want).abs().max()})")
+        err = float((got - want).abs().max())
+        idx = codes.long().transpose(1, 2).contiguous()
+        rows[tag] = dict(
+            shape=(s, c, m, k), max_abs_err=err,
+            ms=time_ms(lambda: pq_adc_slots_tiled(luts, codes), torch),
+            plain_ms=time_ms(lambda: adc_slots_ref(luts, codes), torch),
+            library_ms=time_ms(lambda: torch.gather(luts, 2, idx).sum(1),
+                               torch),
+            bytes=s * m * k * 4 + s * c * m + s * c * 4,
+            ops=s * c * (m - 1),
+        )
+        log(f"[kernels] pq_adc_slots {tag} S,C,M,K={rows[tag]['shape']}: "
+            f"bitwise equal; kernel {rows[tag]['ms']:.4f} ms, plain "
+            f"{rows[tag]['plain_ms']:.4f} ms, gather+sum "
+            f"{rows[tag]['library_ms']:.4f} ms")
+    return rows
+
+
+def check_topk(torch, gen, dev) -> dict:
+    from repro_torch.kernels.topk.ops import merge_topk, topk_ref
+
+    rows = {}
+    cases = (("beam", 256, 64, 256, 64, False),
+             ("pool", 256, 256, 8, 256, False),
+             ("dups", 64, 600, 400, 100, True))
+    for tag, b, ca, cb, k, dups in cases:
+        if dups:
+            da = torch.randint(0, 4, (b, ca), generator=gen, device=dev).float()
+            db = torch.randint(0, 4, (b, cb), generator=gen, device=dev).float()
+        else:
+            da = torch.rand((b, ca), generator=gen, device=dev)
+            db = torch.rand((b, cb), generator=gen, device=dev)
+            # the merges' padding: repeated (INF, -2) pairs
+            da[:, ca - ca // 8:] = float("inf")
+        perm = torch.randperm(b * (ca + cb), generator=gen, device=dev)
+        ids = perm.reshape(b, ca + cb).to(torch.int32)
+        ia, ib = ids[:, :ca].contiguous(), ids[:, ca:].contiguous()
+        if not dups:
+            ia[:, ca - ca // 8:] = -2
+        oi, ov = merge_topk(ia, da, ib, db, k)
+        cat_v, cat_i = torch.cat([da, db], 1), torch.cat([ia, ib], 1)
+        rv, ri = topk_ref(cat_v, cat_i, k)
+        torch.cuda.synchronize()
+        if not (torch.equal(ov, rv) and torch.equal(oi, ri)):
+            raise AssertionError(f"top-k kernel != plain at {tag}")
+        cpad = 1 << (ca + cb - 1).bit_length()
+        lg = cpad.bit_length() - 1
+        rows[tag] = dict(
+            shape=(b, ca + cb, cpad, k), max_abs_err=float(
+                (ov - rv).nan_to_num(posinf=0.0).abs().max()),
+            ms=time_ms(lambda: merge_topk(ia, da, ib, db, k), torch),
+            plain_ms=time_ms(lambda: topk_ref(torch.cat([da, db], 1),
+                                              torch.cat([ia, ib], 1), k),
+                             torch),
+            library_ms=time_ms(lambda: torch.topk(cat_v, k, dim=1,
+                                                  largest=False), torch),
+            bytes=b * (ca + cb) * 8 + b * k * 8,
+            ops=b * (cpad // 2) * lg * (lg + 1) // 2,
+        )
+        log(f"[kernels] bitonic_topk {tag} B,C,Cpad,k={rows[tag]['shape']}: "
+            f"bitwise equal; kernel {rows[tag]['ms']:.4f} ms, plain "
+            f"{rows[tag]['plain_ms']:.4f} ms, torch.topk "
+            f"{rows[tag]['library_ms']:.4f} ms")
+    return rows
+
+
+def profile_batch(torch, eng, queries, sp, out_dir: str) -> None:
+    """One search under torch.profiler: device busy share and the ops that
+    take the card's time, written to ``out_dir``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(out_dir, exist_ok=True)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        res = eng.search(queries, sp)
+    ka = prof.key_averages()
+    # device time = the kernels' own entries (the aten ops that launched
+    # them repeat the same time, so they are left out of the sum)
+    device_us = sum(e.self_device_time_total for e in ka
+                    if e.device_type == DeviceType.CUDA)
+    table = ka.table(sort_by="self_device_time_total", row_limit=30)
+    host = ka.table(sort_by="self_cpu_time_total", row_limit=15)
+    with open(os.path.join(out_dir, "search_ops.txt"), "w") as f:
+        f.write(table + "\n\n" + host + "\n")
+    busy = device_us / 1e6 / res.wall_s
+    log(f"[profile] one batch: wall {res.wall_s:.3f} s (profiled), device "
+        f"busy {device_us / 1e6:.3f} s = {busy:.3f} of the profiled wall; "
+        f"{sum(e.count for e in ka if e.key == 'cudaLaunchKernel')} kernel "
+        f"launches; host blocked in "
+        f"syncs {res.stats['host_sync_s']:.3f} s over "
+        f"{res.stats['host_syncs']} syncs; op table in {out_dir}")
+    log("[profile] top device ops:\n" + "\n".join(table.splitlines()[:16]))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--n", type=int, default=1_000_000)
+    ap.add_argument("--queries", type=int, default=1024)
+    ap.add_argument("--batches", type=int, default=4)
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="after the checks, profile one kernel-route batch "
+                         "with torch.profiler and write its op table to DIR")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    try:
+        import repro_torch
+    except ImportError as e:
+        print(f"chip_smoke: the repro_torch package is missing: {e}",
+              file=sys.stderr)
+        return 3
+    from repro_torch import kernels
+    from repro_torch.api.engine import BatonEngine
+    from repro_torch.configs.batann_serve import IndexSpec, SearchParams
+    from repro_torch.core import ref
+    from repro_torch.data import synth
+    from repro_torch.kernels import _build
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    # --- 1. environment ------------------------------------------------------
+    log("[env]", json.dumps(repro_torch.env_record()))
+    smi = nvidia_smi_line()
+    log(f"[env] nvidia-smi: {smi}")
+
+    # --- 2. build the kernels ------------------------------------------------
+    t0 = time.perf_counter()
+    logs = _build.build()
+    for name, text in logs.items():
+        info = [ln for ln in text.splitlines() if "ptxas info" in ln]
+        log(f"[build] {name}: " + " | ".join(info[-3:]))
+    log(f"[build] kernels ready in {time.perf_counter() - t0:.1f} s "
+        f"({sorted(logs)} compiled)")
+
+    # --- 3. kernels against their plain versions ------------------------------
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    adc = check_adc(torch, gen, dev)
+    topk = check_topk(torch, gen, dev)
+
+    # --- 4. build the index ----------------------------------------------------
+    spec = IndexSpec(p=8, r=32, knn_k=17, pq_m=24, pq_k=256,
+                     head_fraction=0.01)
+    n_q = args.queries * (args.batches + 1)
+    t0 = time.perf_counter()
+    ds = synth.make_dataset("deep", n=args.n, n_queries=n_q, seed=0,
+                            compute_gt_k=0)
+    t_data = time.perf_counter() - t0
+    eng = BatonEngine(device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng.build(ds, spec)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    stages = {k: round(v, 3) for k, v in eng.build_timings.items()}
+    log(f"[index] n={args.n} d=96 P=8 R=32 M=24 K=256: data {t_data:.1f} s "
+        f"(host numpy), build {t_build:.1f} s; stages (s): "
+        f"{json.dumps(stages)}; degree {eng.index.graph.degree_stats()}; "
+        f"peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    t0 = time.perf_counter()
+    gt = ref.brute_force_knn(ds.vectors, ds.queries, 10, device=dev).cpu()
+    log(f"[index] ground truth for {n_q} queries in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # --- 5. answer requests on the kernel route --------------------------------
+    kernel_sp = SearchParams(L=64, W=8, pool=256, slots=32,
+                             adc_impl="mxu_tiled", merge_impl="bitonic")
+    batches = [ds.queries[i * args.queries:(i + 1) * args.queries]
+               for i in range(args.batches + 1)]
+    warm = eng.search(batches[0], kernel_sp)
+    log(f"[search] warm-up batch: {warm.wall_s:.2f} s")
+    kernels.reset_launch_counts()
+    results, recalls = [], []
+    for i, qb in enumerate(batches[1:], start=1):
+        before = kernels.launch_counts()
+        res = eng.search(qb, kernel_sp)
+        after = kernels.launch_counts()
+        rec = ref.recall_at_k(res.ids, gt[i * args.queries:(i + 1)
+                                          * args.queries], 10)
+        st = res.stats
+        log(f"[search] batch {i}: {len(qb)} queries, wall {res.wall_s:.3f} s, "
+            f"QPS {len(qb) / res.wall_s:.1f}, recall@10 {rec:.4f}, "
+            f"counters {json.dumps({k: round(v, 3) for k, v in res.counters().items()})}, "
+            f"n_supersteps {st['n_supersteps']}, delivered {st['delivered']}, "
+            f"host syncs {st['host_syncs']} ({st['host_sync_s']:.3f} s "
+            f"blocked), launches "
+            f"{ {k: after[k] - before[k] for k in after} }")
+        if st["delivered"] != 1.0:
+            raise AssertionError(f"batch {i}: delivered {st['delivered']}")
+        if rec < 0.5:
+            raise AssertionError(f"batch {i}: recall@10 {rec} < 0.5")
+        results.append(res)
+        recalls.append(rec)
+    launches = kernels.launch_counts()
+    for name, count in launches.items():
+        if count == 0:
+            raise AssertionError(f"kernel {name} was never launched on the "
+                                 f"main path")
+    total_q = sum(len(b) for b in batches[1:])
+    total_s = sum(r.wall_s for r in results)
+    log(f"[search] {total_q} queries in {total_s:.3f} s: QPS "
+        f"{total_q / total_s:.1f}, mean recall@10 "
+        f"{sum(recalls) / len(recalls):.4f}, launches {launches}")
+
+    # --- 6. plain route end to end --------------------------------------------
+    plain_sp = SearchParams(L=64, W=8, pool=256, slots=32,
+                            adc_impl="gather", merge_impl="lexsort")
+    kernels.reset_launch_counts()
+    plain = eng.search(batches[1], plain_sp)
+    kern = results[0]
+    if kernels.launch_counts() != {k: 0 for k in launches}:
+        raise AssertionError("the plain route launched a kernel")
+    if not (plain.ids.tobytes() == kern.ids.tobytes()
+            and plain.dists.tobytes() == kern.dists.tobytes()):
+        raise AssertionError("plain route ids/dists differ from kernel route")
+    for f in ("hops", "inter_hops", "dist_comps", "reads", "lut_builds"):
+        if not (plain.stats[f] == kern.stats[f]).all():
+            raise AssertionError(f"plain route counter {f} differs")
+    if plain.stats["n_supersteps"] != kern.stats["n_supersteps"]:
+        raise AssertionError("plain route n_supersteps differs")
+    log(f"[plain] batch 1 on gather/lexsort: bitwise equal ids, dists and "
+        f"counters; wall {plain.wall_s:.3f} s (kernel route "
+        f"{kern.wall_s:.3f} s)")
+
+    if args.profile:
+        profile_batch(torch, eng, batches[1], kernel_sp, args.profile)
+
+    # --- report -----------------------------------------------------------------
+    def entry(name, source, replaces, launches_n, row):
+        b, by = bound_ms(row["bytes"], row["ops"])
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches_n,
+                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": b, "bound_by": by,
+                "library_ms": row["library_ms"]}
+
+    record = {"kernels": [
+        entry("pq_adc_slots", "src/repro_torch/kernels/pq_adc/adc_slots.cu",
+              "src/repro/kernels/pq_adc/kernel.py:100",
+              launches["pq_adc_slots"], adc["slice"]),
+        entry("bitonic_topk", "src/repro_torch/kernels/topk/topk.cu",
+              "src/repro/kernels/topk/kernel.py:62",
+              launches["bitonic_topk"], topk["beam"]),
+    ]}
+    pool_b, _ = bound_ms(topk["pool"]["bytes"], topk["pool"]["ops"])
+    log(f"[report] bitonic_topk at the pool merge: kernel "
+        f"{topk['pool']['ms']:.4f} ms, plain {topk['pool']['plain_ms']:.4f} "
+        f"ms, torch.topk {topk['pool']['library_ms']:.4f} ms, bound "
+        f"{pool_b:.5f} ms; record line times the beam merge")
+    log(f"[report] total {time.perf_counter() - t_start:.1f} s; card: {smi}")
+    print(json.dumps(record), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

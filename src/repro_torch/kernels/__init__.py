@@ -1,0 +1,25 @@
+"""Hand-written CUDA kernels for the TPU kernels on the search path.
+
+``kernels/<name>/`` holds the ``.cu`` source, ``ops.py`` (the wrapper:
+kernel on a CUDA tensor, plain version on a CPU tensor) and ``ref.py`` (the
+plain PyTorch version).  ``_build.py`` compiles and binds the sources.
+"""
+
+from __future__ import annotations
+
+
+def _wrappers() -> dict:
+    from repro_torch.kernels.pq_adc.ops import pq_adc_slots_tiled
+    from repro_torch.kernels.topk.ops import bitonic_topk
+
+    return {"pq_adc_slots": pq_adc_slots_tiled, "bitonic_topk": bitonic_topk}
+
+
+def launch_counts() -> dict:
+    """Kernel launches since the last reset, by kernel name."""
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in _wrappers().values():
+        fn.launches = 0

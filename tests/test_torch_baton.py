@@ -1,0 +1,131 @@
+"""The slice end to end: the reference's index carried across with
+``load_index`` and searched by both packages with the same parameters."""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from _hyp import given, settings, strategies as st
+
+from repro.api.engine import BatonEngine as RefEngine
+from repro.core import baton as rb, ref as rref
+from repro.core.state import STAT_FIELDS
+from repro_torch.api.engine import BatonEngine
+from repro_torch.configs.batann_serve import SearchParams
+from repro_torch.core import baton as tb
+from repro_torch.launch import serve
+
+EQ = dict(L=32, W=8, pool=128, slots=16, pair_cap=4)
+
+
+@pytest.fixture(scope="module")
+def carried(baton_index):
+    eng = BatonEngine(device="cpu")
+    eng.load_index(*RefEngine(baton_index).index_state())
+    return eng
+
+
+def _compare(baton_index, carried, dataset, **kw):
+    ids_r, d_r, st_r = rb.run_simulated(baton_index, dataset.queries,
+                                        rb.BatonParams(**EQ, **kw))
+    ids_t, d_t, st_t = tb.run_simulated(carried.index, dataset.queries,
+                                        tb.BatonParams(**EQ, **kw))
+    agree = float((ids_t == ids_r).mean())
+    fin = np.isfinite(d_r) & np.isfinite(d_t)
+    max_err = float(np.abs(d_r - d_t)[fin].max())
+    deltas = {f: float(st_t[f].mean() - st_r[f].mean()) for f in STAT_FIELDS}
+    rec_r = rref.recall_at_k(ids_r, dataset.gt, 10)
+    rec_t = rref.recall_at_k(ids_t, dataset.gt, 10)
+    print(f"{kw}: ids equal {agree:.4f}, max |dist err| {max_err:.3g}, "
+          f"recall {rec_r:.4f} vs {rec_t:.4f}, counter deltas {deltas}, "
+          f"supersteps {st_r['n_supersteps']} vs {st_t['n_supersteps']}")
+    assert agree >= 0.9
+    assert abs(rec_r - rec_t) <= 0.02
+    return st_r, st_t
+
+
+def test_slice_kernel_route_matches_reference(baton_index, carried, dataset):
+    """adc_impl="mxu_tiled", merge_impl="bitonic" in both packages (the
+    reference in Pallas interpret mode, the port on its plain versions)."""
+    st_r, st_t = _compare(baton_index, carried, dataset,
+                          adc_impl="mxu_tiled", merge_impl="bitonic")
+    assert st_t["delivered"] == 1.0
+    assert abs(st_t["n_supersteps"] - st_r["n_supersteps"]) <= \
+        0.1 * st_r["n_supersteps"]
+    np.testing.assert_array_equal(st_t["lut_builds"], 1 + st_t["inter_hops"])
+
+
+@pytest.mark.parametrize("wire", ["f32", "f16", "i8"])
+def test_slice_ship_lut_matches_reference(baton_index, carried, dataset, wire):
+    st_r, st_t = _compare(baton_index, carried, dataset, ship_lut=True,
+                          lut_wire_dtype=wire)
+    assert st_t["delivered"] == 1.0
+    assert abs(st_t["n_supersteps"] - st_r["n_supersteps"]) <= \
+        0.1 * st_r["n_supersteps"]
+    np.testing.assert_array_equal(st_t["lut_builds"],
+                                  np.ones_like(st_t["lut_builds"]))
+
+
+def test_engine_search_equals_run_simulated(carried, dataset):
+    sp = SearchParams(L=32, W=8, pool=128, slots=16, adc_impl="mxu_tiled",
+                      merge_impl="bitonic")
+    res = carried.search(dataset.queries, sp)
+    cfg = dataclasses.replace(carried.baton_params(sp), adc_impl="gather",
+                              merge_impl="lexsort")
+    ids, dists, stats = tb.run_simulated(carried.index, dataset.queries, cfg)
+    np.testing.assert_array_equal(res.ids, ids)
+    np.testing.assert_array_equal(res.dists, dists)
+    for f in STAT_FIELDS:
+        np.testing.assert_array_equal(res.stats[f], stats[f])
+    np.testing.assert_array_equal(res.stats["trace"], stats["trace"])
+    assert res.stats["host_syncs"] > res.stats["n_supersteps"]
+    assert set(res.counters()) == set(STAT_FIELDS)
+
+
+def test_index_state_round_trips_to_the_reference(baton_index, carried):
+    tree, meta = carried.index_state()
+    want_tree, want_meta = RefEngine(baton_index).index_state()
+    assert meta == want_meta and set(tree) == set(want_tree)
+    for k in tree:
+        np.testing.assert_array_equal(tree[k], np.asarray(want_tree[k]), k)
+    back = RefEngine().load_index(tree, meta)
+    assert back.head_medoid == baton_index.head_medoid
+    env = carried.envelope_bytes(baton_index.dim, SearchParams(ship_lut=True))
+    assert env == RefEngine(baton_index).envelope_bytes(
+        baton_index.dim, SearchParams(ship_lut=True))
+
+
+@settings(max_examples=30, deadline=None)
+@given(p=st.integers(1, 6), cap=st.integers(1, 4), seed=st.integers(0, 999))
+def test_grant_matrix_matches_reference(p, cap, seed):
+    rng = np.random.default_rng(seed)
+    want = rng.integers(0, 6, size=(p, p)).astype(np.int32)
+    free = rng.integers(0, 9, size=p).astype(np.int32)
+    ref = np.asarray(rb.grant_matrix(jnp.asarray(want), jnp.asarray(free),
+                                     cap))
+    got = tb.grant_matrix(torch.tensor(want), torch.tensor(free), cap)
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(adc_impl="dense"), "adc_impl"), (dict(merge_impl="x"), "merge_impl"),
+    (dict(lut_wire_dtype="bf16"), "lut_wire_dtype"),
+    (dict(trace_cap=0), "trace_cap")])
+def test_baton_params_validation_matches_reference(kw, match):
+    with pytest.raises(ValueError, match=match):
+        rb.BatonParams(**kw)
+    with pytest.raises(ValueError, match=match):
+        tb.BatonParams(**kw)
+    fields = [f.name for f in dataclasses.fields(rb.BatonParams)]
+    assert fields == [f.name for f in dataclasses.fields(tb.BatonParams)]
+    assert tb.BatonParams().refill_headroom == rb.BatonParams().refill_headroom
+
+
+def test_serve_cli_runs_on_the_host():
+    report = serve.main(["--n", "600", "--servers", "2", "--queries", "16",
+                         "--L", "24", "--device", "cpu", "--adc-impl",
+                         "mxu_tiled", "--merge-impl", "bitonic"])
+    assert report["delivered"] == 1.0 and report["recall@10"] > 0.8
+    assert report["qps"] > 0 and report["n_supersteps"] > 0
