@@ -4,16 +4,20 @@
     python3 chip_smoke.py            # the full check, one card, no arguments
     python3 chip_smoke.py --n 100000 --queries 256   # a quicker rehearsal
     python3 chip_smoke.py --profile build/profile   # + a profiled batch
+    python3 chip_smoke.py --engine-only   # phases 1-6 only, no result line
 
 Phases (any failure exits non-zero; nothing is swallowed):
 
 1. print the environment record and the card's name and power limit;
-2. build both CUDA kernels from the repository's sources (one ``nvcc``
+2. build the four CUDA kernels from the repository's sources (one ``nvcc``
    each, started together);
 3. hold each kernel bitwise against its plain PyTorch version on the card
-   at the main path's shapes (plus a ragged and a duplicate-heavy case) and
+   at the main paths' shapes (plus ragged and duplicate-heavy cases) and
    time kernel, plain version and one library call (device time from CUDA
-   events, median of 25 single calls after warm-up, inputs resident in L2);
+   events, median of 25 single calls after warm-up, inputs resident in L2):
+   the slot ADC, the bitonic top-k, the dense ADC at the engine's
+   (B, Q, N) = (8, 32, 8192), the tier's (1, 8, 2048) and a ragged shape,
+   and the LUT build at Q = 1024, 32 and 1;
 4. build the ``batann-serve`` index on the card: DEEP-like synthetic data,
    d = 96, n = 1,000,000, P = 8, R = 32, kNN k = 17, PQ M = 24, K = 256,
    head fraction 0.01 (each build stage timed);
@@ -23,9 +27,28 @@ Phases (any failure exits non-zero; nothing is swallowed):
    batch, with the kernels' launch counts reset just before and read just
    after; recall@10 against the card's brute-force ground truth;
 6. re-run the first batch on the plain route (``gather``/``lexsort``) and
-   require ids, distances and all five counters bitwise equal.
+   require ids, distances and all five counters bitwise equal;
+7. the dense route: the first batch through ``BatonEngine.search`` with
+   ``adc_impl="mxu"``, ``merge_impl="bitonic"``, ``lut_impl="kernel"``,
+   bitwise equal (ids, dists, five counters) to the same batch on
+   ``adc_impl="mxu_tiled"`` with the LUT kernel; recall@10 and the ids that
+   differ from the einsum LUT (phase 5) are printed;
+8. the executable tier, closed loop: ``AsyncServingTier`` with 4 worker
+   threads over the P = 8 partitions, micro-batch 8, the phase-7 params,
+   serving the first batch; requires every query completed and answers
+   bitwise equal to phase 7; prints throughput, latency percentiles,
+   hand-offs, wire bytes per hand-off against ``envelope_bytes``, host
+   syncs and kernel launches; then its first 256 queries with the einsum
+   LUT against phase 5, whose parity is printed (a finding, not a
+   requirement);
+9. the executable tier, open loop: 512 Poisson arrivals at half the
+   closed-loop throughput; requires ``offered == completed + rejected`` and
+   parity on the completed ones; prints the same fields.
 
-The line before the last is the kernels' JSON record; the last line is
+Kernel launch counts are set to 0 just before each path runs and read just
+after: the slot ADC and the top-k on phase 5, the dense ADC and the LUT
+kernel on phase 8 (the tier), each of which must have launched.  The line
+before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result, when
 no CUDA device is visible or the ``repro_torch`` package is not beside it.
 """
@@ -40,11 +63,14 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 SPIN_CYCLES = 5_000_000       # ~2.5 ms at the H100's boost clock
+STAT_KEYS = ("hops", "inter_hops", "dist_comps", "reads", "lut_builds")
 
 
 def log(*a):
@@ -165,6 +191,106 @@ def check_topk(torch, gen, dev) -> dict:
     return rows
 
 
+def check_dense_adc(torch, gen, dev) -> dict:
+    from repro_torch.kernels.pq_adc.ops import pq_adc, pq_adc_ref
+
+    rows = {}
+    for tag, (b, q, n, m, k) in (("engine", (8, 32, 8192, 24, 256)),
+                                 ("tier", (1, 8, 2048, 24, 256)),
+                                 ("ragged", (3, 37, 300, 24, 256))):
+        luts = torch.rand((b, q, m, k), generator=gen, device=dev) * 4.0
+        codes = torch.randint(0, k, (b, n, m), generator=gen, device=dev,
+                              dtype=torch.uint8)
+        got = pq_adc(luts, codes)
+        want = pq_adc_ref(luts, codes)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"dense ADC kernel != plain at {tag} "
+                                 f"(max |diff| {(got - want).abs().max()})")
+        idx = codes.long().transpose(1, 2)[:, None].expand(
+            b, q, m, n).contiguous()
+        rows[tag] = dict(
+            shape=(b, q, n, m, k), max_abs_err=float((got - want).abs().max()),
+            ms=time_ms(lambda: pq_adc(luts, codes), torch),
+            plain_ms=time_ms(lambda: pq_adc_ref(luts, codes), torch),
+            library_ms=time_ms(lambda: torch.gather(luts, 3, idx).sum(2),
+                               torch),
+            bytes=b * q * m * k * 4 + b * n * m + b * q * n * 4,
+            ops=b * q * n * (m - 1),
+        )
+        log(f"[kernels] pq_adc {tag} B,Q,N,M,K={rows[tag]['shape']}: "
+            f"bitwise equal; kernel {rows[tag]['ms']:.4f} ms, plain "
+            f"{rows[tag]['plain_ms']:.4f} ms, gather+sum "
+            f"{rows[tag]['library_ms']:.4f} ms")
+    return rows
+
+
+def check_lut(torch, gen, dev) -> dict:
+    from repro_torch.core.pq import build_lut
+    from repro_torch.kernels.pq_lut.ops import pq_lut, pq_lut_ref
+
+    m, k, dsub = 24, 256, 4
+    cent = torch.randn((m, k, dsub), generator=gen, device=dev)
+    rows = {}
+    for q in (1024, 32, 1):
+        queries = torch.randn((q, m * dsub), generator=gen, device=dev)
+        got = pq_lut(queries, cent)
+        want = pq_lut_ref(queries, cent)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"LUT kernel != plain at Q={q} "
+                                 f"(max |diff| {(got - want).abs().max()})")
+        einsum = build_lut(cent, queries)
+        rows[q] = dict(
+            shape=(q, m * dsub, m, k, dsub),
+            max_abs_err=float((got - want).abs().max()),
+            einsum_err=float((got - einsum).abs().max()),
+            ms=time_ms(lambda: pq_lut(queries, cent), torch),
+            plain_ms=time_ms(lambda: pq_lut_ref(queries, cent), torch),
+            library_ms=time_ms(lambda: build_lut(cent, queries), torch),
+            bytes=q * m * dsub * 4 + m * k * dsub * 4 + q * m * k * 4,
+            ops=q * m * k * (2 * dsub + 2) + (q * m + m * k) * (2 * dsub - 1),
+        )
+        log(f"[kernels] pq_lut Q={q} d=96 M=24 K=256 dsub=4: bitwise equal "
+            f"(max |diff| to the einsum {rows[q]['einsum_err']:.3g}); kernel "
+            f"{rows[q]['ms']:.4f} ms, plain {rows[q]['plain_ms']:.4f} ms, "
+            f"einsum build_lut {rows[q]['library_ms']:.4f} ms")
+    return rows
+
+
+def same_answers(a, b) -> bool:
+    """Bitwise equal ids, dists and five counters of two engine results."""
+    return (a.ids.tobytes() == b.ids.tobytes()
+            and a.dists.tobytes() == b.dists.tobytes()
+            and all((a.stats[f] == b.stats[f]).all() for f in STAT_KEYS))
+
+
+def tier_parity(res, want) -> bool:
+    """The tier's completed arrivals against an engine result, bitwise."""
+    ok = res.accepted
+    rows = res.trace_idx[ok]
+    stats = res.stats_dict()
+    return bool(np.array_equal(res.ids[ok], want.ids[rows])
+                and np.array_equal(res.dists[ok], want.dists[rows])
+                and all(np.array_equal(stats[f][ok], want.stats[f][rows])
+                        for f in STAT_KEYS))
+
+
+def tier_line(tag, res, launches) -> str:
+    ms = lambda v: f"{v * 1e3:.2f}"  # noqa: E731
+    return (f"[{tag}] offered {res.offered}, completed {res.completed}, "
+            f"rejected {res.rejected}; throughput {res.throughput_qps:.1f} "
+            f"QPS over {res.makespan_s:.3f} s; latency ms mean "
+            f"{ms(res.mean_s)} p50 {ms(res.percentile_s(50))} p95 "
+            f"{ms(res.percentile_s(95))} p99 {ms(res.percentile_s(99))}; "
+            f"hand-offs {res.handoffs} ({res.wire_batons} on the wire in "
+            f"{res.wire_frames} frames, {res.local_handoffs} local); wire "
+            f"bytes per hand-off {res.wire_bytes_per_handoff} vs envelope "
+            f"{res.envelope_bytes}; advance calls {res.advance_calls}; host "
+            f"syncs {res.host_syncs} ({res.host_sync_s:.3f} s blocked, all "
+            f"workers); launches {launches}")
+
+
 def profile_batch(torch, eng, queries, sp, out_dir: str) -> None:
     """One search under torch.profiler: device busy share and the ops that
     take the card's time, written to ``out_dir``."""
@@ -194,6 +320,31 @@ def profile_batch(torch, eng, queries, sp, out_dir: str) -> None:
     log("[profile] top device ops:\n" + "\n".join(table.splitlines()[:16]))
 
 
+def profile_tier(torch, tier, queries, out_dir: str) -> None:
+    """One closed-loop tier run under torch.profiler: the card's busy share
+    while the worker threads serve, and the ops that take its time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(out_dir, exist_ok=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = tier.search(queries)
+    ka = prof.key_averages()
+    device_us = sum(e.self_device_time_total for e in ka
+                    if e.device_type == DeviceType.CUDA)
+    table = ka.table(sort_by="self_device_time_total", row_limit=30)
+    with open(os.path.join(out_dir, "tier_ops.txt"), "w") as f:
+        f.write(table + "\n")
+    log(f"[profile] tier closed loop: makespan {res.makespan_s:.3f} s "
+        f"(profiled), device busy {device_us / 1e6:.3f} s = "
+        f"{device_us / 1e6 / res.makespan_s:.3f} of it; "
+        f"{sum(e.count for e in ka if e.key == 'cudaLaunchKernel')} kernel "
+        f"launches; op table in {out_dir}")
+    log("[profile] tier top device ops:\n"
+        + "\n".join(table.splitlines()[:14]))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=1_000_000)
@@ -202,6 +353,10 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="after the checks, profile one kernel-route batch "
                          "with torch.profiler and write its op table to DIR")
+    ap.add_argument("--engine-only", action="store_true",
+                    help="stop after phase 6 and print no result: times the "
+                         "engine's path alone, as an older tree's script "
+                         "that ends there does (for A/B runs in one call)")
     args = ap.parse_args(argv)
 
     import torch
@@ -218,10 +373,12 @@ def main(argv=None) -> int:
         return 3
     from repro_torch import kernels
     from repro_torch.api.engine import BatonEngine
+    from repro_torch.cluster import make_workload
     from repro_torch.configs.batann_serve import IndexSpec, SearchParams
     from repro_torch.core import ref
     from repro_torch.data import synth
     from repro_torch.kernels import _build
+    from repro_torch.serve_async import AsyncServingTier
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -244,6 +401,8 @@ def main(argv=None) -> int:
     gen.manual_seed(0)
     adc = check_adc(torch, gen, dev)
     topk = check_topk(torch, gen, dev)
+    dense = check_dense_adc(torch, gen, dev)
+    lut = check_lut(torch, gen, dev)
 
     # --- 4. build the index ----------------------------------------------------
     spec = IndexSpec(p=8, r=32, knn_k=17, pq_m=24, pq_k=256,
@@ -300,10 +459,10 @@ def main(argv=None) -> int:
         results.append(res)
         recalls.append(rec)
     launches = kernels.launch_counts()
-    for name, count in launches.items():
-        if count == 0:
+    for name in ("pq_adc_slots", "bitonic_topk"):
+        if launches[name] == 0:
             raise AssertionError(f"kernel {name} was never launched on the "
-                                 f"main path")
+                                 f"engine's path")
     total_q = sum(len(b) for b in batches[1:])
     total_s = sum(r.wall_s for r in results)
     log(f"[search] {total_q} queries in {total_s:.3f} s: QPS "
@@ -330,6 +489,86 @@ def main(argv=None) -> int:
         f"counters; wall {plain.wall_s:.3f} s (kernel route "
         f"{kern.wall_s:.3f} s)")
 
+    if args.engine_only:
+        log("[report] --engine-only: stopped after phase 6")
+        return 0
+
+    # --- 7. the dense route with the LUT kernel ------------------------------
+    mxu_sp = SearchParams(L=64, W=8, pool=256, slots=32, adc_impl="mxu",
+                          merge_impl="bitonic", lut_impl="kernel")
+    tiled_lut_sp = SearchParams(L=64, W=8, pool=256, slots=32,
+                                adc_impl="mxu_tiled", merge_impl="bitonic",
+                                lut_impl="kernel")
+    kernels.reset_launch_counts()
+    mxu = eng.search(batches[1], mxu_sp)
+    mxu_launches = kernels.launch_counts()
+    tiled_lut = eng.search(batches[1], tiled_lut_sp)
+    if not same_answers(mxu, tiled_lut):
+        raise AssertionError("mxu route differs from mxu_tiled (LUT kernel)")
+    if mxu.stats["delivered"] != 1.0:
+        raise AssertionError(f"mxu route delivered {mxu.stats['delivered']}")
+    rec_mxu = ref.recall_at_k(mxu.ids, gt[args.queries:2 * args.queries], 10)
+    log(f"[mxu] batch 1 on mxu/bitonic/LUT kernel: wall {mxu.wall_s:.3f} s, "
+        f"QPS {args.queries / mxu.wall_s:.1f}, recall@10 {rec_mxu:.4f}; "
+        f"bitwise equal to mxu_tiled with the LUT kernel (wall "
+        f"{tiled_lut.wall_s:.3f} s); {int((mxu.ids != kern.ids).sum())} of "
+        f"{kern.ids.size} ids differ from the einsum LUT (phase 5); "
+        f"launches {mxu_launches}")
+    if mxu_launches["pq_adc"] == 0 or mxu_launches["pq_lut"] == 0:
+        raise AssertionError("the mxu route did not launch pq_adc/pq_lut")
+
+    # --- 8. the executable tier, closed loop --------------------------------------
+    tier = AsyncServingTier(eng.index, eng.baton_params(mxu_sp), n_workers=4,
+                            batch=8)
+    try:
+        t0 = time.perf_counter()
+        tier.warmup()
+        log(f"[tier] 4 worker threads over P=8, batch 8; warm-up "
+            f"{time.perf_counter() - t0:.2f} s")
+        kernels.reset_launch_counts()
+        closed = tier.search(batches[1])
+        tier_launches = kernels.launch_counts()
+        log(tier_line("tier closed", closed, tier_launches))
+        if closed.completed != len(batches[1]):
+            raise AssertionError(f"closed loop completed {closed.completed}")
+        if not tier_parity(closed, mxu):
+            raise AssertionError("tier (closed loop) answers differ from the "
+                                 "engine's")
+        for name in ("pq_adc", "pq_lut", "bitonic_topk"):
+            if tier_launches[name] == 0:
+                raise AssertionError(f"kernel {name} was never launched on "
+                                     f"the tier's path")
+        log("[tier closed] answers bitwise equal to the engine's (phase 7)")
+
+        # --- 9. the executable tier, open loop ---------------------------------
+        rate = 0.5 * closed.throughput_qps
+        wl = make_workload(len(batches[1]), rate, 512, "poisson", seed=0)
+        kernels.reset_launch_counts()
+        opened = tier.serve(batches[1], wl)
+        log(tier_line("tier open", opened, kernels.launch_counts())
+            + f"; offered rate {rate:.1f} QPS")
+        if opened.offered != opened.completed + opened.rejected:
+            raise AssertionError("open loop lost arrivals")
+        if not tier_parity(opened, mxu):
+            raise AssertionError("tier (open loop) answers differ from the "
+                                 "engine's")
+        log("[tier open] offered == completed + rejected; completed answers "
+            "bitwise equal to the engine's")
+        if args.profile:
+            profile_tier(torch, tier, batches[1][:256], args.profile)
+    finally:
+        tier.close()
+
+    with AsyncServingTier(eng.index, eng.baton_params(kernel_sp), n_workers=4,
+                          batch=8) as tier_e:
+        einsum_res = tier_e.search(batches[1][:256])
+    log(f"[tier einsum] the einsum LUT (mxu_tiled/bitonic), first 256 "
+        f"queries, against phase 5: "
+        f"parity {tier_parity(einsum_res, kern)}, "
+        f"{int((einsum_res.ids != kern.ids[:256]).sum())} ids and "
+        f"{int((einsum_res.dists != kern.dists[:256]).sum())} dists differ; "
+        f"throughput {einsum_res.throughput_qps:.1f} QPS")
+
     if args.profile:
         profile_batch(torch, eng, batches[1], kernel_sp, args.profile)
 
@@ -349,13 +588,29 @@ def main(argv=None) -> int:
         entry("bitonic_topk", "src/repro_torch/kernels/topk/topk.cu",
               "src/repro/kernels/topk/kernel.py:62",
               launches["bitonic_topk"], topk["beam"]),
+        entry("pq_adc", "src/repro_torch/kernels/pq_adc/adc.cu",
+              "src/repro/kernels/pq_adc/kernel.py:63",
+              tier_launches["pq_adc"], dense["tier"]),
+        entry("pq_lut", "src/repro_torch/kernels/pq_lut/lut.cu",
+              "src/repro/kernels/pq_lut/kernel.py:27",
+              tier_launches["pq_lut"], lut[1]),
     ]}
+    for tag, row in [("pq_adc " + t, dense[t]) for t in dense] + \
+            [(f"pq_lut Q={q}", lut[q]) for q in lut]:
+        b, by = bound_ms(row["bytes"], row["ops"])
+        log(f"[report] {tag}: kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
+            f"bound {b:.5f} ms ({by})")
     pool_b, _ = bound_ms(topk["pool"]["bytes"], topk["pool"]["ops"])
     log(f"[report] bitonic_topk at the pool merge: kernel "
         f"{topk['pool']['ms']:.4f} ms, plain {topk['pool']['plain_ms']:.4f} "
         f"ms, torch.topk {topk['pool']['library_ms']:.4f} ms, bound "
         f"{pool_b:.5f} ms; record line times the beam merge")
+    log(f"[report] record line: pq_adc at the tier's (1, 8, 2048) and "
+        f"pq_lut at Q=1 with their launches on the tier's closed-loop run; "
+        f"pq_adc_slots and bitonic_topk with theirs on phase 5")
     log(f"[report] total {time.perf_counter() - t_start:.1f} s; card: {smi}")
+    log(smi)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

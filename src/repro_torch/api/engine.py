@@ -94,6 +94,7 @@ class BatonEngine:
             n_starts=sp.n_starts, ship_lut=sp.ship_lut,
             lut_wire_dtype=sp.lut_wire_dtype, lazy_queue_lut=sp.lazy_queue_lut,
             fused=sp.fused, adc_impl=sp.adc_impl, merge_impl=sp.merge_impl,
+            lut_impl=sp.lut_impl,
         )
 
     def search(self, queries, params, meter: "SyncMeter | None" = None

@@ -1,9 +1,11 @@
 """The ``batann-serve`` deployment as configuration.
 
-A copy of the data/index/search sections of ``repro/configs/batann_serve.py``
-with the same fields and defaults, so a config written for one package
-describes the same deployment in the other.  The simulator, executable-tier
-and mutation sections are not ported yet (ROADMAP queue 1).
+A copy of the data/index/search/exec sections of
+``repro/configs/batann_serve.py`` with the same fields, defaults and
+validation, so a config written for one package describes the same
+deployment in the other.  ``SearchParams.lut_impl`` is the port's own (the
+LUT-kernel switch, off by default).  The simulator and mutation sections are
+not ported yet (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -62,23 +64,94 @@ class SearchParams:
     fused: bool = True
     adc_impl: str = "gather"      # gather | mxu | mxu_tiled
     merge_impl: str = "lexsort"   # lexsort | bitonic
+    lut_impl: str = "einsum"      # einsum | kernel (port only: CUDA LUT build)
+
+
+@dataclasses.dataclass(frozen=True)
+class ExecSpec:
+    """Executable-tier section (``serve_async`` — real workers).
+
+    ``workers == 0`` disables the tier (the default).  With
+    ``workers >= 1``, ``api.deployment.run_exec`` starts that many
+    partition-owning workers and drives them with a wall-clock client.
+    ``send_rate == 0`` is the closed-loop batch client (admission blocks,
+    every query completes — the bit-parity path); ``send_rate > 0`` paces
+    ``n_arrivals`` arrivals from the chosen schedule and *rejects* when the
+    bounded admission queue (``queue_cap``) is full.  ``slots`` /
+    ``admit_headroom`` mirror the simulator's ``SlotStage`` (slots 0 =
+    ``search.slots``); ``time_scale`` stretches the schedule's wall clock.
+    ``batch`` is the per-worker micro-batch: each loop iteration drains up
+    to that many batons and advances each same-partition group in one call
+    (``runtime.advance_batch``).  ``mode="process"`` is a valid setting
+    whose tier is not ported yet: the tier raises on it.
+    """
+
+    workers: int = 0
+    mode: str = "thread"         # thread | process
+    send_rate: float = 0.0       # wall-clock open-loop rate (0 = closed loop)
+    arrival: str = "poisson"     # poisson | burst | skew | diurnal
+    n_arrivals: int = 200
+    slots: int = 0               # 0 = inherit search.slots
+    admit_headroom: int = 2
+    queue_cap: int = 64
+    batch: int = 1               # batons advanced per worker loop iteration
+    time_scale: float = 1.0
+    seed: int = 0
+
+    def __post_init__(self):
+        if self.workers < 0:
+            raise ValueError(f"workers must be >= 0: {self.workers}")
+        if self.batch < 1:
+            raise ValueError(f"batch must be >= 1: {self.batch}")
+        if self.mode not in ("thread", "process"):
+            raise ValueError(f"mode must be thread|process: {self.mode}")
+        if self.send_rate < 0:
+            raise ValueError(f"send_rate must be >= 0: {self.send_rate}")
+        if self.arrival not in ("poisson", "burst", "skew", "diurnal"):
+            raise ValueError(
+                f"arrival must be poisson|burst|skew|diurnal: {self.arrival}")
+        if self.n_arrivals < 1:
+            raise ValueError(f"n_arrivals must be >= 1: {self.n_arrivals}")
+        if self.slots < 0:
+            raise ValueError(f"slots must be >= 0: {self.slots}")
+        if self.admit_headroom < 0:
+            raise ValueError(
+                f"admit_headroom must be >= 0: {self.admit_headroom}")
+        if self.queue_cap < 1:
+            raise ValueError(f"queue_cap must be >= 1: {self.queue_cap}")
+        if self.time_scale <= 0:
+            raise ValueError(f"time_scale must be > 0: {self.time_scale}")
 
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
-    """One deployment: dataset + index + search sections."""
+    """One deployment: dataset + index + search + exec sections."""
 
     name: str = "batann-serve"
     data: DataSpec = dataclasses.field(default_factory=DataSpec)
     index: IndexSpec = dataclasses.field(default_factory=IndexSpec)
     search: SearchParams = dataclasses.field(default_factory=SearchParams)
+    exec: ExecSpec = dataclasses.field(default_factory=ExecSpec)
+
+    def __post_init__(self):
+        # the exec tier runs real baton workers — baton engine only, and
+        # never more workers than partitions to own
+        if self.exec.workers > 0:
+            if self.index.engine != "baton":
+                raise ValueError(
+                    "exec tier requires index.engine == 'baton': "
+                    f"{self.index.engine}")
+            if self.exec.workers > self.index.p:
+                raise ValueError(
+                    f"exec.workers ({self.exec.workers}) must be <= "
+                    f"index.p ({self.index.p})")
 
     def with_updates(self, **sections) -> "ServeConfig":
         """New config with per-section field updates:
         ``cfg.with_updates(index={"p": 4}, search={"L": 32})``."""
         out = self
         for sec, updates in sections.items():
-            if sec not in ("data", "index", "search"):
+            if sec not in ("data", "index", "search", "exec"):
                 raise KeyError(f"unknown section '{sec}'")
             updates = {k: v for k, v in updates.items() if v is not None}
             out = dataclasses.replace(

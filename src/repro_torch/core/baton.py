@@ -51,13 +51,11 @@ from repro_torch.device import SyncMeter, resolve_device, timed
 I32 = torch.int32
 
 _NOT_PORTED = {
-    "fused": "fused=False (the per-slot step_disk path) is not ported yet "
-             "(ROADMAP queue 1 item 2)",
+    "fused": "run_simulated(fused=False) (the per-slot engine loop) is not "
+             "ported yet (ROADMAP queue 1 item 2)",
     "sector": "codes_mode='sector' (AiSAQ sector codes) is not ported yet "
               "(ROADMAP queue 1 item 3)",
     "lazy": "lazy_queue_lut=True is not ported yet (ROADMAP queue 1 item 4)",
-    "mxu": "adc_impl='mxu' (the dense ADC kernel pq_adc_pallas) is not "
-           "ported yet (ROADMAP queue 2 item 4)",
     "kmeans": "partitioner='kmeans' (balanced k-means) is not ported yet "
               "(ROADMAP queue 1 item 2)",
 }
@@ -82,12 +80,15 @@ class BatonParams:
     max_supersteps: int = 512
     fused: bool = True       # slot-batched scoring + single-pass merges
     adc_impl: str = "gather"  # "gather" (plain) | "mxu_tiled" (CUDA
-    #                          slot-ADC kernel, bitwise equal) | "mxu"
+    #                          slot-ADC kernel) | "mxu" (CUDA dense ADC
+    #                          kernel); all three bitwise equal
     merge_impl: str = "lexsort"  # "lexsort" | "bitonic" (CUDA top-k kernel)
     ship_lut: bool = False   # §8: ship the LUT in the envelope vs rebuild
     lut_wire_dtype: str = "f32"  # f32 | f16 | i8 wire LUT (with ship_lut)
     lazy_queue_lut: bool = False
     trace_cap: int = 32      # residency segments recorded per query
+    lut_impl: str = "einsum"  # "einsum" (the reference's build_lut) |
+    #                           "kernel" (CUDA LUT kernel; port only)
 
     def __post_init__(self):
         if self.adc_impl not in ("gather", "mxu", "mxu_tiled"):
@@ -99,12 +100,12 @@ class BatonParams:
         if self.lut_wire_dtype not in ("f32", "f16", "i8"):
             raise ValueError(
                 f"lut_wire_dtype must be f32|f16|i8: {self.lut_wire_dtype}")
+        if self.lut_impl not in pq.LUT_IMPLS:
+            raise ValueError(f"lut_impl must be einsum|kernel: {self.lut_impl}")
         if self.trace_cap < 1:
             raise ValueError(f"trace_cap must be >= 1: {self.trace_cap}")
         if not self.fused:
             raise NotImplementedError(_NOT_PORTED["fused"])
-        if self.adc_impl == "mxu":
-            raise NotImplementedError(_NOT_PORTED["mxu"])
         if self.lazy_queue_lut:
             raise NotImplementedError(_NOT_PORTED["lazy"])
 
@@ -273,8 +274,8 @@ def init_device_state(queries, qids, starts, start_d, cfg: BatonParams,
     P, Q, d = queries.shape
     m, k_pq = codebook.shape[0], codebook.shape[1]
     dev = queries.device
-    queue_lut = pq.build_lut(codebook, queries.reshape(P * Q, d)).reshape(
-        P, Q, m, k_pq)
+    queue_lut = pq.build_lut(codebook, queries.reshape(P * Q, d),
+                             impl=cfg.lut_impl).reshape(P, Q, m, k_pq)
     return DeviceState(
         states=empty_state(d, cfg.L, cfg.pool, m=m, k_pq=k_pq,
                            trace_cap=cfg.trace_cap, shape=(P, cfg.slots),
@@ -383,7 +384,7 @@ def local_advance(dev: DeviceState, shard: Shard, cfg: BatonParams,
                     & running.repeat_interleave(S))
         new = step_disk_batched(
             st, shard, st.lut, local & runnable[:, None], fposs, parts,
-            adc_impl=cfg.adc_impl, merge_impl=cfg.merge_impl,
+            adc_impl=cfg.adc_impl, merge_impl=cfg.merge_impl, groups=P,
         )
         _, _, v = select_frontier(new.beam_ids, new.beam_expl, 1)
         new = new._replace(done=new.done | ~v.any(1))
@@ -558,7 +559,7 @@ def merge_recv(dev: DeviceState, incoming: QueryState, cfg: BatonParams,
         tr = land.trace
         segc = tr.seg.clamp(0, tr.part.shape[-1] - 1).long()[:, None]
         land = land._replace(
-            lut=pq.build_lut(codebook, land.query),
+            lut=pq.build_lut(codebook, land.query, impl=cfg.lut_impl),
             counters=land.counters._replace(
                 lut_builds=land.counters.lut_builds + 1),
             trace=tr._replace(lut_builds=tr.lut_builds.scatter_add(

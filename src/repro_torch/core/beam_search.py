@@ -9,11 +9,14 @@ function takes rows with a leading batch axis where the reference is
   loop over the batch in which a finished row is frozen: its body result
   is discarded, as the batched ``while_loop`` does.  One device->host sync
   per hop decides whether any row is still live.
+* ``step_disk`` — one disk-search step of one query state (the per-slot
+  reference path the executable tier drives); ``fused=False`` takes the
+  two-pass merges.
 * ``step_disk_batched`` — one disk-search step for a table of resident
   slots: sector reads, exact distances into the rerank pool, candidate
-  dedup, PQ scoring (``adc_impl``: plain gather or the CUDA slot-ADC
-  kernel) and the beam/pool merges (``merge_impl``: two stable sorts or the
-  CUDA bitonic top-k kernel).
+  dedup, PQ scoring (``adc_impl``: plain gather, the CUDA slot-ADC kernel
+  or the CUDA dense ADC kernel) and the beam/pool merges (``merge_impl``:
+  two stable sorts or the CUDA bitonic top-k kernel).
 
 ``jnp.lexsort`` sorts by its last key first; ``_lexsort`` runs one stable
 sort per key, least significant first, which gives the same order.
@@ -47,6 +50,24 @@ def _lexsort(keys) -> torch.Tensor:
         o = torch.sort(k, dim=-1, stable=True).indices
         order = o if order is None else order.gather(-1, o)
     return order
+
+
+def sq_l2(vecs: torch.Tensor, query: torch.Tensor) -> torch.Tensor:
+    """Squared L2 distance over the last axis, summed as a fixed tree of
+    elementwise adds (halve, add, carry an odd tail).  Each output depends
+    only on its own row, so it is bitwise the same whatever the batch shape:
+    a reduction kernel on the card picks its summation order from the
+    launch shape, and the executable tier (one state, or a micro-batch)
+    must reproduce the engine's (all slots) distances exactly."""
+    x = (vecs - query) ** 2
+    while x.shape[-1] > 3:
+        h = x.shape[-1] // 2
+        y = x[..., :h] + x[..., h:2 * h]
+        x = torch.cat([y, x[..., 2 * h:]], -1) if x.shape[-1] % 2 else y
+    out = x[..., 0]
+    for j in range(1, x.shape[-1]):
+        out = out + x[..., j]
+    return out
 
 
 def _take(order, *xs):
@@ -228,7 +249,7 @@ def search_inmem(
 
     def dist_to(ids):
         v = vectors[ids.clamp(0, n - 1).long()]
-        d = ((v - queries[:, None, :]) ** 2).sum(-1)
+        d = sq_l2(v, queries[:, None, :])
         return torch.where(ids == NO_ID, INF, d)
 
     s = start_ids.shape[0]
@@ -307,6 +328,73 @@ def read_sectors(shard: Shard, gids: torch.Tensor, parts: torch.Tensor):
     return vecs, nbrs
 
 
+def step_disk(
+    state: QueryState,           # one query: leaves without a batch axis
+    shard: Shard,
+    lut: torch.Tensor,           # (M, K) PQ lookup table of state.query
+    frontier_mask: torch.Tensor,  # (W,) bool — which frontier lanes to expand
+    frontier_pos: torch.Tensor,   # (W,) beam positions of the frontier
+    part: int = 0,               # row of the stacked shard to read sectors of
+    fused: bool = True,
+    merge_impl: str = "lexsort",
+) -> QueryState:
+    """Expand the masked frontier nodes of one state: read sectors, rerank,
+    grow the beam.  ``fused=False`` takes the two-pass merges (the path the
+    fused merges are held equal to); PQ scoring is the plain gather."""
+    dev = frontier_mask.device
+    gids = torch.where(frontier_mask, state.beam_ids[frontier_pos], NO_ID)
+    vecs, nbrs = read_sectors(shard, gids[None],
+                              torch.full((1,), part, device=dev))
+    vecs, nbrs = vecs[0], nbrs[0]                              # (W,d),(W,R)
+    ed = sq_l2(vecs, state.query[None, :])
+    ed = torch.where(gids == NO_ID, INF, ed)
+    rows = (state.pool_ids[None], state.pool_dists[None], gids[None],
+            ed[None])
+    if fused:
+        pool_ids, pool_dists = merge_pool_fused(*rows, impl=merge_impl)
+    else:
+        pool_ids, pool_dists = merge_pool(*rows)
+    pool_ids, pool_dists = pool_ids[0], pool_dists[0]
+
+    # order-independent explored mark (see step_disk_batched)
+    mark = torch.zeros(state.beam_expl.shape, dtype=I32, device=dev)
+    mark.index_put_((frontier_pos,), frontier_mask.to(I32), accumulate=True)
+    beam_expl = state.beam_expl | (mark > 0)
+
+    cand = nbrs.reshape(-1)                                     # (W*R,)
+    known = _contains(state.beam_ids, cand) | _contains(pool_ids, cand)
+    cand = torch.where(known, NO_ID, cand)
+    n = shard.codes.shape[0]
+    cand_codes = shard.codes[cand.clamp(0, n - 1).long()]
+    cd_flat = pq.adc(lut[None], cand_codes)[0]
+    # dedup within candidates (same neighbour from two expanded nodes)
+    order = torch.sort(cand, stable=True).indices
+    cs = cand[order]
+    cand = torch.where(_dup_mask(cs), NO_ID, cs)
+    cd = torch.where(cand == NO_ID, INF, cd_flat[order])
+
+    if fused:
+        out = merge_into_beam_fused(
+            state.beam_ids[None], state.beam_dists[None], beam_expl[None],
+            cand[None], cd[None], impl=merge_impl)
+    else:
+        out = merge_into_beam(state.beam_ids[None], state.beam_dists[None],
+                              beam_expl[None], cand[None], cd[None])
+    beam_ids, beam_dists, beam_expl = (x[0] for x in out)
+
+    n_read = (gids != NO_ID).sum(dtype=I32)
+    c = state.counters
+    counters = c._replace(
+        hops=c.hops + (n_read > 0).to(I32),
+        dist_comps=c.dist_comps + (cand != NO_ID).sum(dtype=I32) + n_read,
+        reads=c.reads + n_read,
+    )
+    return state._replace(
+        beam_ids=beam_ids, beam_dists=beam_dists, beam_expl=beam_expl,
+        pool_ids=pool_ids, pool_dists=pool_dists, counters=counters,
+    )
+
+
 def step_disk_batched(
     states: QueryState,        # every leaf has leading (S,) axis
     shard: Shard,
@@ -316,16 +404,22 @@ def step_disk_batched(
     parts: torch.Tensor,       # (S,) partition whose sectors each slot reads
     adc_impl: str = "gather",
     merge_impl: str = "lexsort",
+    groups: int = 1,           # slot blocks of the dense ADC (partitions)
 ) -> QueryState:
     """One step of work for all S resident states: read the masked
     frontier sectors, rerank them into the pool, PQ-score the deduplicated
-    neighbours (one call for all slots) and merge them into the beams."""
+    neighbours (one call for all slots) and merge them into the beams.
+
+    ``adc_impl="mxu"`` scores through the dense ADC kernel with the
+    reference's cost shape: the reference ``vmap``s this step over
+    partitions, so each of the ``groups`` equal slot blocks is one dense
+    (S/G, S/G·W·R) product whose block diagonal is kept."""
     S, W = masks.shape
     gids = torch.where(masks, states.beam_ids.gather(1, fposs), NO_ID)
     vecs, nbrs = read_sectors(shard, gids, parts)             # (S,W,d),(S,W,R)
     R = nbrs.shape[-1]
 
-    ed = ((vecs - states.query[:, None, :]) ** 2).sum(-1)      # (S, W)
+    ed = sq_l2(vecs, states.query[:, None, :])                 # (S, W)
     ed = torch.where(gids == NO_ID, INF, ed)
     pool_ids, pool_dists = merge_pool_fused(
         states.pool_ids, states.pool_dists, gids, ed, impl=merge_impl)
@@ -349,11 +443,14 @@ def step_disk_batched(
         from repro_torch.kernels.pq_adc.ops import pq_adc_slots_tiled
 
         cd_flat = pq_adc_slots_tiled(luts, cand_codes)
+    elif adc_impl == "mxu":
+        from repro_torch.kernels.pq_adc.ops import pq_adc_slots
+
+        cd_flat = pq_adc_slots(luts, cand_codes, groups=groups)
     elif adc_impl == "gather":
         cd_flat = pq.adc_slots(luts, cand_codes)
     else:
-        raise NotImplementedError(
-            f"adc_impl={adc_impl!r} is not ported (ROADMAP queue 2 item 4)")
+        raise ValueError(f"adc_impl must be gather|mxu|mxu_tiled: {adc_impl}")
 
     order = torch.sort(cand, dim=1, stable=True).indices
     cs = cand.gather(1, order)

@@ -2,7 +2,8 @@
 
 Counterpart of ``repro/core/pq.py``.  Squared-L2 everywhere; codes are
 uint8 with K <= 256.  ``build_lut`` keeps the reference's einsum formula
-outside any kernel.  ``adc``/``adc_slots`` sum over m left to right (the
+by default; ``impl="kernel"`` routes it to the CUDA LUT kernel
+(``kernels/pq_lut``, the same formula in a fixed order).  ``adc``/``adc_slots`` sum over m left to right (the
 order of the reference's ``jnp.sum``), so given the same LUT they are
 bitwise equal to it; the CUDA slot-ADC kernel (``kernels/pq_adc``) keeps
 the same order.
@@ -17,6 +18,9 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.pq_adc.ref import adc_slots_ref
+from repro_torch.kernels.pq_lut.ops import pq_lut
+
+LUT_IMPLS = ("einsum", "kernel")
 
 
 @dataclasses.dataclass
@@ -99,9 +103,19 @@ def encode(cb: PQCodebook, x, chunk: int = 131072) -> torch.Tensor:
     return out
 
 
-def build_lut(cb_centroids: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
+def build_lut(cb_centroids: torch.Tensor, queries: torch.Tensor,
+              impl: str = "einsum") -> torch.Tensor:
     """(M, K, dsub) centroids, (Q, d) queries -> (Q, M, K) float32 where
-    lut[q, m, c] = ||query_sub[q, m] - centroid[m, c]||^2."""
+    lut[q, m, c] = ||query_sub[q, m] - centroid[m, c]||^2.
+
+    ``impl="einsum"`` is the reference's formula; ``impl="kernel"`` is
+    ``kernels.pq_lut.ops.pq_lut`` (CUDA on the card, its plain version on
+    the host), within float32 rounding of it and independent of the batch.
+    """
+    if impl == "kernel":
+        return pq_lut(queries, cb_centroids)
+    if impl != "einsum":
+        raise ValueError(f"lut impl must be einsum|kernel: {impl}")
     m = cb_centroids.shape[0]
     q = queries.reshape(queries.shape[0], m, queries.shape[1] // m)
     return ((q * q).sum(-1)[:, :, None]

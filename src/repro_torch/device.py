@@ -72,6 +72,14 @@ class SyncMeter:
         self.count += 1
         return out
 
+    def wait(self, device: torch.device) -> None:
+        """Block until ``device`` has run its queued work (one sync: it
+        ends a batch of non-blocking device->host copies)."""
+        t0 = time.perf_counter()
+        synchronize(device)
+        self.seconds += time.perf_counter() - t0
+        self.count += 1
+
     def nonzero(self, mask: torch.Tensor):
         """``mask.nonzero(as_tuple=True)`` (its size is a host value)."""
         t0 = time.perf_counter()

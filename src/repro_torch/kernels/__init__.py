@@ -1,4 +1,4 @@
-"""Hand-written CUDA kernels for the TPU kernels on the search path.
+"""Hand-written CUDA kernels, one for each TPU kernel of the reference.
 
 ``kernels/<name>/`` holds the ``.cu`` source, ``ops.py`` (the wrapper:
 kernel on a CUDA tensor, plain version on a CPU tensor) and ``ref.py`` (the
@@ -9,10 +9,12 @@ from __future__ import annotations
 
 
 def _wrappers() -> dict:
-    from repro_torch.kernels.pq_adc.ops import pq_adc_slots_tiled
+    from repro_torch.kernels.pq_adc.ops import pq_adc, pq_adc_slots_tiled
+    from repro_torch.kernels.pq_lut.ops import pq_lut
     from repro_torch.kernels.topk.ops import bitonic_topk
 
-    return {"pq_adc_slots": pq_adc_slots_tiled, "bitonic_topk": bitonic_topk}
+    return {"pq_adc_slots": pq_adc_slots_tiled, "bitonic_topk": bitonic_topk,
+            "pq_adc": pq_adc, "pq_lut": pq_lut}
 
 
 def launch_counts() -> dict:

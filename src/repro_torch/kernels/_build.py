@@ -6,6 +6,8 @@ to ``build/torch_kernels/`` at the repository root (listed in
 ``.gitignore``), named by a hash of the source and the flags, and are built
 at first use; ``build()`` starts one ``nvcc`` per source, all at once.  A
 failed build or launch raises: nothing falls back to the plain version.
+Loading is serialised by a lock (worker threads may ask for a library at
+once), and so is every wrapper's launch count (``count_launch``).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -32,13 +35,24 @@ SOURCES = {
         "bitonic_topk_launch": [_VP, _VP, _I, _VP, _VP, _I, _I, _I, _I,
                                 _VP, _VP, _VP],
     }),
-    "pq_adc": ("pq_adc/adc_slots.cu", {
+    "pq_adc_slots": ("pq_adc/adc_slots.cu", {
         "adc_slots_launch": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
     }),
+    "pq_adc": ("pq_adc/adc.cu", {
+        "adc_dense_launch": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
+    }),
+    "pq_lut": ("pq_lut/lut.cu", {
+        "pq_lut_launch": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
+    }),
 }
-_ERROR_STRING = {"topk": "topk_error_string", "pq_adc": "adc_error_string"}
+_ERROR_STRING = {"topk": "topk_error_string",
+                 "pq_adc_slots": "adc_error_string",
+                 "pq_adc": "adc_dense_error_string",
+                 "pq_lut": "pq_lut_error_string"}
 
 _loaded: dict = {}   # name -> ctypes.CDLL (one load per process)
+_load_lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def source_path(name: str) -> Path:
@@ -87,18 +101,25 @@ def build(names=None) -> dict:
 
 def load(name: str) -> ctypes.CDLL:
     """The bound library for ``name``, built first if needed."""
-    lib = _loaded.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        for fn, argtypes in SOURCES[name][1].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        err_fn = getattr(lib, _ERROR_STRING[name])
-        err_fn.argtypes = [ctypes.c_int]
-        err_fn.restype = ctypes.c_char_p
-        _loaded[name] = lib
+    with _load_lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            for fn, argtypes in SOURCES[name][1].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            err_fn = getattr(lib, _ERROR_STRING[name])
+            err_fn.argtypes = [ctypes.c_int]
+            err_fn.restype = ctypes.c_char_p
+            _loaded[name] = lib
     return lib
+
+
+def count_launch(fn) -> None:
+    """Add one to ``fn.launches`` (a wrapper's launch count)."""
+    with _count_lock:
+        fn.launches += 1
 
 
 def check_launch(name: str, err: int) -> None:

@@ -1,1 +1,1 @@
-"""Slot-tiled PQ ADC: CUDA kernel, wrapper and plain version."""
+"""PQ ADC: the slot-tiled and dense CUDA kernels, wrappers, plain versions."""

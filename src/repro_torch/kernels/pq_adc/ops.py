@@ -1,8 +1,9 @@
-"""Public wrapper of the slot-tiled ADC kernel (``adc_slots.cu``).
+"""Public wrappers of the ADC kernels: the slot-tiled ``adc_slots.cu`` and
+the dense ``adc.cu``.
 
-On a CUDA tensor the wrapper launches the kernel (or raises); on a CPU
-tensor it runs the plain version in ``ref.py``.
-``pq_adc_slots_tiled.launches`` counts kernel launches.
+On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU tensor
+it runs the plain version in ``ref.py``.  ``pq_adc_slots_tiled.launches``
+and ``pq_adc.launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -10,7 +11,18 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.pq_adc.ref import adc_slots_ref
+from repro_torch.kernels.pq_adc.ref import adc_slots_ref, pq_adc_ref
+
+
+def _check_card_inputs(luts: torch.Tensor, codes: torch.Tensor, name: str):
+    if luts.dtype != torch.float32 or codes.dtype != torch.uint8:
+        raise TypeError(f"the {name} kernel takes float32 LUTs and uint8 codes")
+    if codes.device != luts.device:
+        raise ValueError("LUTs and codes must be on one device")
+    if not (luts.is_contiguous() and codes.is_contiguous()):
+        raise ValueError(f"the {name} kernel takes contiguous LUTs and codes")
+    if luts.shape[-1] > 256:
+        raise ValueError(f"K={luts.shape[-1]} > 256 (codes are uint8)")
 
 
 def pq_adc_slots_tiled(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
@@ -25,25 +37,74 @@ def pq_adc_slots_tiled(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
                          f"{tuple(codes.shape)}")
     if luts.device.type == "cpu":
         return adc_slots_ref(luts, codes)
-    if luts.dtype != torch.float32 or codes.dtype != torch.uint8:
-        raise TypeError("the ADC kernel takes float32 LUTs and uint8 codes")
-    if codes.device != luts.device:
-        raise ValueError("LUTs and codes must be on one device")
-    if not (luts.is_contiguous() and codes.is_contiguous()):
-        raise ValueError("the ADC kernel takes contiguous LUTs and codes")
-    k = luts.shape[2]
-    if k > 256 or s > 65535:
-        raise ValueError(f"K={k} > 256 or S={s} > 65535")
+    _check_card_inputs(luts, codes, "slot-ADC")
+    if s > 65535:
+        raise ValueError(f"S={s} > 65535")
     out = torch.empty((s, c), dtype=torch.float32, device=luts.device)
-    lib = _build.load("pq_adc")
+    lib = _build.load("pq_adc_slots")
     err = lib.adc_slots_launch(luts.data_ptr(), codes.data_ptr(),
-                               out.data_ptr(), s, c, m, k,
+                               out.data_ptr(), s, c, m, luts.shape[2],
                                _build.stream_handle(luts))
-    _build.check_launch("pq_adc", err)
-    pq_adc_slots_tiled.launches += 1
+    _build.check_launch("pq_adc_slots", err)
+    _build.count_launch(pq_adc_slots_tiled)
     return out
 
 
 pq_adc_slots_tiled.launches = 0
 
-__all__ = ["adc_slots_ref", "pq_adc_slots_tiled"]
+
+def pq_adc(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """(Q, M, K) x (N, M) -> (Q, N), or with a leading batch axis
+    (B, Q, M, K) x (B, N, M) -> (B, Q, N): every query against every code
+    row (of its batch entry).  Bitwise equal to ``core.pq.adc``."""
+    batched = lut.dim() == 4
+    if not batched:
+        lut, codes = lut[None], codes[None]
+    b, q, m, k = lut.shape
+    if codes.dim() != 3 or codes.shape[0] != b or codes.shape[2] != m:
+        raise ValueError(f"lut {tuple(lut.shape)} vs codes "
+                         f"{tuple(codes.shape)}")
+    if lut.device.type == "cpu":
+        out = pq_adc_ref(lut, codes)
+    else:
+        _check_card_inputs(lut, codes, "dense ADC")
+        n = codes.shape[1]
+        if b > 65535 or (q + 3) // 4 > 65535:
+            raise ValueError(f"B={b} or Q={q} beyond the launch grid")
+        if m * k * 4 > 227 * 1024:
+            raise ValueError(f"one query's LUT (M={m}, K={k}) exceeds a "
+                             f"block's shared memory")
+        out = torch.empty((b, q, n), dtype=torch.float32, device=lut.device)
+        lib = _build.load("pq_adc")
+        err = lib.adc_dense_launch(lut.data_ptr(), codes.data_ptr(),
+                                   out.data_ptr(), b, q, n, m, k,
+                                   _build.stream_handle(lut))
+        _build.check_launch("pq_adc", err)
+        _build.count_launch(pq_adc)
+    return out if batched else out[0]
+
+
+pq_adc.launches = 0
+
+
+def pq_adc_slots(luts: torch.Tensor, codes: torch.Tensor,
+                 groups: int = 1) -> torch.Tensor:
+    """(S, M, K) x (S, C, M) -> (S, C) through the dense kernel.
+
+    As the reference's ``pq_adc_slots``: the slots fall into ``groups``
+    equal blocks (the engine's partitions); each block scores every one of
+    its slots against every candidate of the block, one dense call of
+    (S/G, S/G·C) per block, and keeps the block diagonal.
+    """
+    s, c, m = codes.shape
+    if s % groups:
+        raise ValueError(f"S={s} slots do not split into {groups} groups")
+    sg, k = s // groups, luts.shape[-1]
+    full = pq_adc(luts.reshape(groups, sg, m, k).contiguous(),
+                  codes.reshape(groups, sg * c, m).contiguous())
+    diag = torch.diagonal(full.reshape(groups, sg, sg, c), dim1=1, dim2=2)
+    return diag.permute(0, 2, 1).reshape(s, c)
+
+
+__all__ = ["adc_slots_ref", "pq_adc", "pq_adc_ref", "pq_adc_slots",
+           "pq_adc_slots_tiled"]

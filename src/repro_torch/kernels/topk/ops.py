@@ -44,7 +44,7 @@ def _launch(va, ia, vb, ib, k: int):
         rows, cpad, k, out_v.data_ptr(), out_i.data_ptr(),
         _build.stream_handle(va))
     _build.check_launch("topk", err)
-    bitonic_topk.launches += 1
+    _build.count_launch(bitonic_topk)
     return out_v, out_i
 
 

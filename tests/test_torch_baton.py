@@ -27,17 +27,18 @@ def carried(baton_index):
     return eng
 
 
-def _compare(baton_index, carried, dataset, **kw):
-    ids_r, d_r, st_r = rb.run_simulated(baton_index, dataset.queries,
+def _compare(baton_index, carried, dataset, n_queries=None, **kw):
+    queries, gt = dataset.queries[:n_queries], dataset.gt[:n_queries]
+    ids_r, d_r, st_r = rb.run_simulated(baton_index, queries,
                                         rb.BatonParams(**EQ, **kw))
-    ids_t, d_t, st_t = tb.run_simulated(carried.index, dataset.queries,
+    ids_t, d_t, st_t = tb.run_simulated(carried.index, queries,
                                         tb.BatonParams(**EQ, **kw))
     agree = float((ids_t == ids_r).mean())
     fin = np.isfinite(d_r) & np.isfinite(d_t)
     max_err = float(np.abs(d_r - d_t)[fin].max())
     deltas = {f: float(st_t[f].mean() - st_r[f].mean()) for f in STAT_FIELDS}
-    rec_r = rref.recall_at_k(ids_r, dataset.gt, 10)
-    rec_t = rref.recall_at_k(ids_t, dataset.gt, 10)
+    rec_r = rref.recall_at_k(ids_r, gt, 10)
+    rec_t = rref.recall_at_k(ids_t, gt, 10)
     print(f"{kw}: ids equal {agree:.4f}, max |dist err| {max_err:.3g}, "
           f"recall {rec_r:.4f} vs {rec_t:.4f}, counter deltas {deltas}, "
           f"supersteps {st_r['n_supersteps']} vs {st_t['n_supersteps']}")
@@ -55,6 +56,47 @@ def test_slice_kernel_route_matches_reference(baton_index, carried, dataset):
     assert abs(st_t["n_supersteps"] - st_r["n_supersteps"]) <= \
         0.1 * st_r["n_supersteps"]
     np.testing.assert_array_equal(st_t["lut_builds"], 1 + st_t["inter_hops"])
+
+
+def test_slice_mxu_route_matches_reference(baton_index, carried, dataset):
+    """adc_impl="mxu" in both packages: the dense ADC (the reference's Pallas
+    kernel in interpret mode, vmapped per partition; the port's plain
+    version in per-partition blocks), held to the reference's own bar for
+    this route (test_fused_equivalence.py::test_run_simulated_mxu_adc) —
+    and bitwise equal to the port's slot-tiled route."""
+    n = 16
+    st_r, st_t = _compare(baton_index, carried, dataset, n_queries=n,
+                          adc_impl="mxu", merge_impl="bitonic")
+    assert st_t["delivered"] == 1.0
+    ids, dists, stats = tb.run_simulated(
+        carried.index, dataset.queries[:n],
+        tb.BatonParams(**EQ, adc_impl="mxu_tiled", merge_impl="bitonic"))
+    ids_m, dists_m, stats_m = tb.run_simulated(
+        carried.index, dataset.queries[:n],
+        tb.BatonParams(**EQ, adc_impl="mxu", merge_impl="bitonic"))
+    np.testing.assert_array_equal(ids_m, ids)
+    np.testing.assert_array_equal(dists_m, dists)
+    for f in STAT_FIELDS:
+        np.testing.assert_array_equal(stats_m[f], stats[f], f)
+
+
+def test_lut_kernel_route_against_einsum(baton_index, carried, dataset):
+    """lut_impl="kernel" (the LUT kernel's plain version here) against the
+    einsum build, held to the reference's bar for float drift (over 90% of
+    ids equal, recall within 0.02); the differing ids are printed."""
+    cfg = tb.BatonParams(**EQ, adc_impl="mxu_tiled", merge_impl="bitonic")
+    ids_e, d_e, st_e = tb.run_simulated(carried.index, dataset.queries, cfg)
+    ids_k, d_k, st_k = tb.run_simulated(
+        carried.index, dataset.queries,
+        dataclasses.replace(cfg, lut_impl="kernel"))
+    rec_e = rref.recall_at_k(ids_e, dataset.gt, 10)
+    rec_k = rref.recall_at_k(ids_k, dataset.gt, 10)
+    print(f"lut_impl kernel vs einsum: {int((ids_k != ids_e).sum())} of "
+          f"{ids_e.size} ids differ, recall {rec_k:.4f} vs {rec_e:.4f}")
+    assert float((ids_k == ids_e).mean()) >= 0.9
+    assert abs(rec_k - rec_e) <= 0.02
+    assert st_k["delivered"] == 1.0
+    np.testing.assert_array_equal(st_k["lut_builds"], 1 + st_k["inter_hops"])
 
 
 @pytest.mark.parametrize("wire", ["f32", "f16", "i8"])
@@ -119,7 +161,9 @@ def test_baton_params_validation_matches_reference(kw, match):
     with pytest.raises(ValueError, match=match):
         tb.BatonParams(**kw)
     fields = [f.name for f in dataclasses.fields(rb.BatonParams)]
-    assert fields == [f.name for f in dataclasses.fields(tb.BatonParams)]
+    # the port's one extra field, the LUT-kernel switch, comes last
+    assert fields + ["lut_impl"] == [
+        f.name for f in dataclasses.fields(tb.BatonParams)]
     assert tb.BatonParams().refill_headroom == rb.BatonParams().refill_headroom
 
 

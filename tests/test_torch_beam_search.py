@@ -140,7 +140,8 @@ def _step_inputs(dataset, graph, codebook, codes, S=6, L=40, W=8):
 
 
 @pytest.mark.parametrize("adc_impl,merge_impl", [("gather", "lexsort"),
-                                                 ("mxu_tiled", "bitonic")])
+                                                 ("mxu_tiled", "bitonic"),
+                                                 ("mxu", "lexsort")])
 def test_step_disk_batched_matches_reference(dataset, graph, codebook, codes,
                                              adc_impl, merge_impl):
     shard, states, luts, masks, fposs = _step_inputs(dataset, graph,
@@ -211,3 +212,68 @@ def test_search_inmem_freezes_finished_rows():
     assert res.beam_ids[:, 0].tolist() == [0, 3]
     res = tbs.search_inmem(vecs, nbrs, q, start, L=1, max_hops=2)
     assert res.hops.tolist() == [1, 2]
+
+
+def _torch_state(states, i=None):
+    """The reference's stacked states as the port's, optionally row i."""
+    h = lambda x: torch.tensor(np.asarray(x if i is None else x[i]))  # noqa: E731
+    return ts.QueryState(
+        query=h(states.query), beam_ids=h(states.beam_ids),
+        beam_dists=h(states.beam_dists), beam_expl=h(states.beam_expl),
+        pool_ids=h(states.pool_ids), pool_dists=h(states.pool_dists),
+        counters=ts.Counters(*(h(c) for c in states.counters)),
+        active=h(states.active), done=h(states.done), home=h(states.home),
+        qid=h(states.qid),
+    )
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_step_disk_matches_reference(dataset, graph, codebook, codes, fused):
+    """The per-state step, fused and unfused (bitwise; exact distances of
+    the pool rtol 1e-5, the L2 over d summing in another order than XLA's),
+    and against the same row of the port's batched step (bitwise)."""
+    shard, states, luts, masks, fposs = _step_inputs(dataset, graph,
+                                                     codebook, codes)
+    h = lambda x: torch.tensor(np.asarray(x))  # noqa: E731
+    t_shard = tbs.Shard(vectors=h(shard.vectors)[None],
+                        neighbors=h(shard.neighbors)[None],
+                        codes=h(shard.codes), node2part=h(shard.node2part),
+                        node2local=h(shard.node2local))
+    batched = tbs.step_disk_batched(
+        _torch_state(states), t_shard, h(luts), h(masks), h(fposs).long(),
+        torch.zeros(masks.shape[0], dtype=torch.int64))
+    for i in range(masks.shape[0]):
+        st_i = jax.tree.map(lambda x: x[i], states)
+        want = jax.jit(rbs.step_disk, static_argnames=("fused",))(
+            st_i, shard, luts[i], masks[i], fposs[i], fused=fused)
+        got = tbs.step_disk(_torch_state(states, i), t_shard, h(luts[i]),
+                            h(masks[i]), h(fposs[i]).long(), part=0,
+                            fused=fused)
+        for f in ("beam_ids", "beam_expl", "pool_ids", "beam_dists"):
+            np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                          np.asarray(getattr(want, f)), f)
+            np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                          getattr(batched, f)[i].numpy(), f)
+        np.testing.assert_allclose(got.pool_dists.numpy(),
+                                   np.asarray(want.pool_dists), rtol=1e-5)
+        np.testing.assert_array_equal(got.pool_dists.numpy(),
+                                      batched.pool_dists[i].numpy())
+        for f, g, b in zip(ts.STAT_FIELDS, got.counters, batched.counters):
+            np.testing.assert_array_equal(
+                g.numpy(), np.asarray(getattr(want.counters, f)), f)
+            assert int(g) == int(b[i]), f
+
+
+@pytest.mark.parametrize("d", [96, 7, 3, 1])
+def test_sq_l2_is_independent_of_the_batch(d):
+    """Each row's distance is the same bits alone or inside any batch, and
+    within float32 rounding of the plain sum."""
+    rng = np.random.default_rng(d)
+    v = torch.tensor(rng.normal(size=(5, 8, d)).astype(np.float32))
+    q = torch.tensor(rng.normal(size=(5, 1, d)).astype(np.float32))
+    full = tbs.sq_l2(v, q)
+    for i in range(5):
+        assert torch.equal(tbs.sq_l2(v[i], q[i]), full[i])
+        assert torch.equal(tbs.sq_l2(v[i, :1], q[i]), full[i, :1])
+    torch.testing.assert_close(full, ((v - q) ** 2).sum(-1), rtol=1e-5,
+                               atol=1e-5)

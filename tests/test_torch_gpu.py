@@ -78,3 +78,103 @@ def test_kernel_wrappers_raise_on_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         bitonic_topk(torch.zeros((2, 5000), device=cuda),
                      torch.zeros((2, 5000), dtype=torch.int32, device=cuda), 4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,q,n,m,k", [
+    (8, 32, 8192, 24, 256),      # the engine's mxu route: one block a partition
+    (1, 8, 2048, 24, 256),       # the tier's micro-batch of 8
+    (3, 37, 300, 16, 128),       # ragged Q and N tiles
+    (2, 5, 100, 64, 256),        # past 48 KB of shared memory
+])
+def test_dense_adc_kernel_bitwise(cuda, b, q, n, m, k):
+    from repro_torch.kernels.pq_adc.ops import (
+        pq_adc, pq_adc_ref, pq_adc_slots, pq_adc_slots_tiled)
+
+    g = torch.Generator(device=cuda).manual_seed(b * q + n)
+    luts = torch.randn((b, q, m, k), generator=g, device=cuda)
+    codes = torch.randint(0, k, (b, n, m), generator=g, device=cuda,
+                          dtype=torch.uint8)
+    before = pq_adc.launches
+    got = pq_adc(luts, codes)
+    torch.cuda.synchronize()
+    assert pq_adc.launches == before + 1
+    assert torch.equal(got, pq_adc_ref(luts, codes))
+    if n % q == 0:
+        # the slot contract: bitwise equal to the slot-tiled kernel
+        s = b * q
+        sl = luts.reshape(s, m, k)
+        sc = codes.reshape(s, n // q, m)
+        assert torch.equal(pq_adc_slots(sl, sc, groups=b),
+                           pq_adc_slots_tiled(sl, sc))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,m,k,dsub", [
+    (1024, 24, 256, 4), (32, 24, 256, 4), (1, 24, 256, 4), (100, 16, 128, 8),
+    (5, 8, 256, 40),
+])
+def test_lut_kernel_bitwise(cuda, q, m, k, dsub):
+    from repro_torch.core.pq import build_lut
+    from repro_torch.kernels.pq_lut.ops import pq_lut, pq_lut_ref
+
+    g = torch.Generator(device=cuda).manual_seed(q * m + dsub)
+    queries = torch.randn((q, m * dsub), generator=g, device=cuda)
+    cent = torch.randn((m, k, dsub), generator=g, device=cuda)
+    before = pq_lut.launches
+    got = pq_lut(queries, cent)
+    torch.cuda.synchronize()
+    assert pq_lut.launches == before + 1
+    assert torch.equal(got, pq_lut_ref(queries, cent))
+    # every entry is independent of the batch it is built in
+    assert torch.equal(pq_lut(queries[:1], cent), got[:1])
+    torch.testing.assert_close(got, build_lut(cent, queries), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_new_wrappers_raise_on_what_they_do_not_take(cuda):
+    from repro_torch.kernels.pq_adc.ops import pq_adc
+    from repro_torch.kernels.pq_lut.ops import pq_lut
+
+    with pytest.raises(TypeError):
+        pq_adc(torch.zeros((2, 4, 16), device=cuda),
+               torch.zeros((8, 4), dtype=torch.int32, device=cuda))
+    with pytest.raises(TypeError):
+        pq_lut(torch.zeros((2, 8), dtype=torch.float64, device=cuda),
+               torch.zeros((2, 16, 4), dtype=torch.float64, device=cuda))
+    with pytest.raises(ValueError):
+        pq_lut(torch.zeros((2, 9), device=cuda), torch.zeros((2, 16, 4),
+                                                             device=cuda))
+
+
+@pytest.mark.gpu
+def test_exec_tier_matches_engine_on_card(cuda):
+    """A small index on the card: the tier (2 workers, batch 4) against the
+    engine, bitwise, on the kernel routes with the LUT kernel."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.api.engine import BatonEngine
+    from repro_torch.configs.batann_serve import IndexSpec, SearchParams
+    from repro_torch.data import synth
+    from repro_torch.serve_async import AsyncServingTier
+
+    ds = synth.make_dataset("deep", n=3000, n_queries=64, seed=0,
+                            compute_gt_k=0, device="cuda")
+    eng = BatonEngine(device="cuda")
+    eng.build(ds, IndexSpec(p=4, r=24, pq_m=24, pq_k=256))
+    sp = SearchParams(L=32, W=4, pool=128, slots=16, adc_impl="mxu",
+                      merge_impl="bitonic", lut_impl="kernel")
+    want = eng.search(ds.queries, sp)
+    kernels.reset_launch_counts()
+    with AsyncServingTier(eng.index, eng.baton_params(sp), n_workers=2,
+                          batch=4) as tier:
+        res = tier.search(ds.queries)
+    assert np.array_equal(res.ids, want.ids)
+    assert np.array_equal(res.dists, want.dists)
+    got = res.stats_dict()
+    for f in ("hops", "inter_hops", "dist_comps", "reads", "lut_builds"):
+        assert np.array_equal(got[f], want.stats[f]), f
+    counts = kernels.launch_counts()
+    assert counts["pq_lut"] > 0 and counts["bitonic_topk"] > 0

@@ -3,7 +3,8 @@
 * ``src/repro_torch`` and ``chip_smoke.py`` import neither JAX nor the
   reference package (AST scan);
 * asking for CUDA without a card raises — nothing falls back to the CPU;
-* modes the port does not carry yet raise ``NotImplementedError``.
+* modes the port does not carry yet raise ``NotImplementedError`` naming
+  their ROADMAP item.
 """
 
 import ast
@@ -15,8 +16,11 @@ import torch
 
 from repro_torch import device as tdev
 from repro_torch.api.engine import BatonEngine
+from repro_torch.configs.batann_serve import ExecSpec
 from repro_torch.core import baton, ref
 from repro_torch.data import synth
+from repro_torch.serve_async import AsyncServingTier, runtime
+from repro_torch.serve_async.queues import ProcessInbox
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro")
@@ -85,11 +89,29 @@ def test_env_record_names_what_is_missing(no_cuda, monkeypatch):
     assert tdev.gpu_missing({"cuda_available": True, "nvcc": "/x"}) is None
 
 
-@pytest.mark.parametrize("kw", [dict(adc_impl="mxu"), dict(fused=False),
-                                dict(lazy_queue_lut=True)])
+@pytest.mark.parametrize("kw", [dict(fused=False), dict(lazy_queue_lut=True)])
 def test_modes_not_carried_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         baton.BatonParams(**kw)
+
+
+def test_dense_adc_route_is_carried():
+    assert baton.BatonParams(adc_impl="mxu").adc_impl == "mxu"
+
+
+def test_exec_process_mode_raises():
+    """ExecSpec(mode="process") is a valid config; the tier refuses it."""
+    spec = ExecSpec(workers=1, mode="process")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        AsyncServingTier(None, baton.BatonParams(), n_workers=1,
+                         mode=spec.mode)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ProcessInbox()
+
+
+def test_partition_shard_sector_codes_raise():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        runtime.partition_shard(None, 0, sector_codes=True)
 
 
 def test_sector_codes_and_kmeans_raise():

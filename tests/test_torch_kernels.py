@@ -1,6 +1,12 @@
 """The port's kernel wrappers on the CPU (their plain versions) against the
-reference's Pallas wrappers in interpret mode, bitwise; the build and
-launch plumbing that runs without a card."""
+reference's Pallas wrappers in interpret mode; the build and launch
+plumbing that runs without a card.
+
+Tolerances: the ADC and top-k wrappers are bitwise equal to the reference's
+(the dense ADC's interpret-mode accumulation 0 + p0 + p1 + ... gives the
+gather's left-to-right sum exactly).  The LUT build is a float formula in
+another order than XLA's dot: rtol 1e-4, atol 1e-4, the reference's own
+bar for its kernel (``tests/test_kernels.py::test_pq_lut_shapes``)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -9,12 +15,18 @@ import torch
 from _hyp import given, settings, strategies as st
 
 from repro.core import beam_search as rbs, pq as rpq
-from repro.kernels.pq_adc.ops import pq_adc_slots_tiled as r_adc_tiled
+from repro.kernels.pq_adc.ops import (
+    pq_adc as r_adc, pq_adc_slots as r_adc_slots,
+    pq_adc_slots_tiled as r_adc_tiled)
+from repro.kernels.pq_lut.ops import pq_lut as r_lut
 from repro.kernels.topk.ops import bitonic_topk as r_topk, merge_topk as r_merge
 from repro_torch import kernels
 from repro_torch.core import beam_search as tbs
 from repro_torch.kernels import _build
-from repro_torch.kernels.pq_adc.ops import pq_adc_slots_tiled
+from repro_torch.core import pq as tpq
+from repro_torch.kernels.pq_adc.ops import (
+    pq_adc, pq_adc_slots, pq_adc_slots_tiled)
+from repro_torch.kernels.pq_lut.ops import pq_lut
 from repro_torch.kernels.topk.ops import bitonic_topk, merge_topk
 
 
@@ -29,6 +41,66 @@ def test_adc_slots_tiled_bitwise_vs_pallas(s, c, m, k):
     got = pq_adc_slots_tiled(torch.tensor(luts), torch.tensor(codes)).numpy()
     np.testing.assert_array_equal(got, pallas)
     np.testing.assert_array_equal(got, gather)
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.int32])
+@pytest.mark.parametrize("q,n,m,k", [
+    (8, 64, 8, 64), (37, 333, 16, 256), (130, 512, 32, 128),
+])
+def test_pq_adc_bitwise_vs_pallas(q, n, m, k, dtype):
+    """The dense ADC at the shapes of tests/test_kernels.py::
+    test_pq_adc_shapes: equal to the Pallas kernel and to the gather."""
+    rng = np.random.default_rng(n)
+    lut = rng.normal(size=(q, m, k)).astype(np.float32)
+    codes = rng.integers(0, k, size=(n, m)).astype(dtype)
+    pallas = np.asarray(r_adc(jnp.asarray(lut), jnp.asarray(codes)))
+    got = pq_adc(torch.tensor(lut), torch.tensor(codes)).numpy()
+    np.testing.assert_array_equal(got, pallas)
+    np.testing.assert_array_equal(
+        got, np.asarray(rpq.adc(jnp.asarray(lut), jnp.asarray(codes))))
+    # the leading batch axis: two blocks at once, each its own product
+    both = pq_adc(torch.tensor(np.stack([lut, lut[::-1].copy()])),
+                  torch.tensor(np.stack([codes, codes])))
+    np.testing.assert_array_equal(both[0].numpy(), pallas)
+    np.testing.assert_array_equal(both[1].numpy(), pallas[::-1])
+
+
+@pytest.mark.parametrize("s,c,m,k", [(8, 64, 16, 128), (6, 70, 8, 64),
+                                     (1, 32, 4, 16)])
+def test_pq_adc_slots_bitwise_vs_pallas(s, c, m, k):
+    """The dense route's slot contract (score every pair of the block, keep
+    the diagonal), in one block or split into per-partition blocks."""
+    rng = np.random.default_rng(s * c)
+    luts = rng.normal(size=(s, m, k)).astype(np.float32)
+    codes = rng.integers(0, k, size=(s, c, m)).astype(np.int32)
+    want = np.asarray(r_adc_slots(jnp.asarray(luts), jnp.asarray(codes)))
+    tl, tc = torch.tensor(luts), torch.tensor(codes)
+    np.testing.assert_array_equal(pq_adc_slots(tl, tc).numpy(), want)
+    groups = 2 if s % 2 == 0 else 1
+    np.testing.assert_array_equal(
+        pq_adc_slots(tl, tc, groups=groups).numpy(), want)
+    np.testing.assert_array_equal(pq_adc_slots_tiled(tl, tc).numpy(), want)
+
+
+@pytest.mark.parametrize("q,m,k,dsub", [
+    (8, 8, 64, 4), (37, 16, 256, 6), (128, 32, 256, 4), (1, 4, 16, 8),
+])
+def test_pq_lut_vs_pallas(q, m, k, dsub):
+    """The LUT build at the shapes of tests/test_kernels.py::
+    test_pq_lut_shapes, rtol 1e-4, atol 1e-4; its plain version is the
+    kernel's fixed order, so each entry is independent of the batch."""
+    rng = np.random.default_rng(q * m)
+    queries = rng.normal(size=(q, m * dsub)).astype(np.float32)
+    cents = rng.normal(size=(m, k, dsub)).astype(np.float32)
+    want = np.asarray(r_lut(jnp.asarray(queries), jnp.asarray(cents)))
+    got = pq_lut(torch.tensor(queries), torch.tensor(cents))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(
+        pq_lut(torch.tensor(queries[-1:]), torch.tensor(cents)).numpy(),
+        got[-1:].numpy())
+    np.testing.assert_array_equal(
+        tpq.build_lut(torch.tensor(cents), torch.tensor(queries),
+                      impl="kernel").numpy(), got.numpy())
 
 
 @pytest.mark.parametrize("b,c,k", [(4, 16, 4), (13, 200, 17), (8, 1024, 64),
@@ -112,7 +184,10 @@ def test_cpu_wrappers_launch_nothing():
                  3)
     pq_adc_slots_tiled(torch.zeros((2, 4, 16)),
                        torch.zeros((2, 8, 4), dtype=torch.uint8))
-    assert kernels.launch_counts() == {"pq_adc_slots": 0, "bitonic_topk": 0}
+    pq_adc(torch.zeros((2, 4, 16)), torch.zeros((8, 4), dtype=torch.uint8))
+    pq_lut(torch.zeros((2, 8)), torch.zeros((2, 16, 4)))
+    assert kernels.launch_counts() == {"pq_adc_slots": 0, "bitonic_topk": 0,
+                                       "pq_adc": 0, "pq_lut": 0}
 
 
 def test_wrappers_validate_shapes():
@@ -122,6 +197,16 @@ def test_wrappers_validate_shapes():
     with pytest.raises(ValueError, match="luts"):
         pq_adc_slots_tiled(torch.zeros((2, 5, 16)),
                            torch.zeros((2, 8, 4), dtype=torch.uint8))
+    with pytest.raises(ValueError, match="lut"):
+        pq_adc(torch.zeros((2, 4, 16)), torch.zeros((8, 5), dtype=torch.uint8))
+    with pytest.raises(ValueError, match="groups"):
+        pq_adc_slots(torch.zeros((3, 4, 16)),
+                     torch.zeros((3, 8, 4), dtype=torch.uint8), groups=2)
+    with pytest.raises(ValueError, match="queries"):
+        pq_lut(torch.zeros((2, 9)), torch.zeros((2, 16, 4)))
+    with pytest.raises(ValueError, match="lut impl"):
+        tpq.build_lut(torch.zeros((2, 16, 4)), torch.zeros((2, 8)),
+                      impl="dense")
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
@@ -153,3 +238,26 @@ def test_library_names_follow_source_and_flags():
         assert path.parent == _build.BUILD_DIR
         assert path == _build.library_path(name)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_launch_counts_survive_threads():
+    """Worker threads launch at once; a lost update would drop counts."""
+    import sys
+    import threading
+
+    kernels.reset_launch_counts()
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda: [
+            _build.count_launch(pq_lut) for _ in range(2000)])
+            for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert kernels.launch_counts()["pq_lut"] == 16 * 2000
+    kernels.reset_launch_counts()
