@@ -15,9 +15,11 @@ Phases (any failure exits non-zero; nothing is swallowed):
    at the main paths' shapes (plus ragged and duplicate-heavy cases) and
    time kernel, plain version and one library call (device time from CUDA
    events, median of 25 single calls after warm-up, inputs resident in L2):
-   the slot ADC, the bitonic top-k, the dense ADC at the engine's
-   (B, Q, N) = (8, 32, 8192), the tier's (1, 8, 2048) and a ragged shape,
-   and the LUT build at Q = 1024, 32 and 1;
+   the slot ADC, the bitonic top-k (the beam and pool merges, rows that
+   pad to 1024 and 4096, printing ``topk_plan``'s tiling), the dense ADC at
+   the engine's (B, Q, N) = (8, 32, 8192), the tier's (1, g, 256 g) for
+   g = 8, 4, 2, 1 and a ragged shape (printing the tiling ``adc_plan``
+   chose for each), and the LUT build at Q = 1024, 32 and 1;
 4. build the ``batann-serve`` index on the card: DEEP-like synthetic data,
    d = 96, n = 1,000,000, P = 8, R = 32, kNN k = 17, PQ M = 24, K = 256,
    head fraction 0.01 (each build stage timed);
@@ -71,6 +73,22 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 SPIN_CYCLES = 5_000_000       # ~2.5 ms at the H100's boost clock
 STAT_KEYS = ("hops", "inter_hops", "dist_comps", "reads", "lut_builds")
+# The kernels' times before the redesign of the dense ADC and the top-k
+# (PERF.md's kernel table: NVIDIA H100 80GB HBM3, 700 W, CUDA events,
+# median of 25 calls, inputs in L2), by (kernel, phase-3 shape); the
+# record line carries them as ``earlier_ms``.  None: not measured then.
+EARLIER_MS = {
+    ("pq_adc_slots", "slice"): 0.0109,
+    ("bitonic_topk", "beam"): 0.0129, ("bitonic_topk", "pool"): 0.0129,
+    ("pq_adc", "engine"): 0.0888, ("pq_adc", "tier"): 0.0610,
+    ("pq_adc", "ragged"): 0.0352,
+    ("pq_lut", 1024): 0.0317, ("pq_lut", 32): 0.0146, ("pq_lut", 1): 0.0068,
+}
+
+
+# the kernels' names as the profiler lists them (inside each key)
+PORT_KERNELS = ("adc_dense_kernel", "adc_slots_kernel", "topk_kernel",
+                "pq_lut_kernel")
 
 
 def log(*a):
@@ -128,6 +146,7 @@ def check_adc(torch, gen, dev) -> dict:
         err = float((got - want).abs().max())
         idx = codes.long().transpose(1, 2).contiguous()
         rows[tag] = dict(
+            earlier_ms=EARLIER_MS.get(("pq_adc_slots", tag)),
             shape=(s, c, m, k), max_abs_err=err,
             ms=time_ms(lambda: pq_adc_slots_tiled(luts, codes), torch),
             plain_ms=time_ms(lambda: adc_slots_ref(luts, codes), torch),
@@ -144,12 +163,13 @@ def check_adc(torch, gen, dev) -> dict:
 
 
 def check_topk(torch, gen, dev) -> dict:
-    from repro_torch.kernels.topk.ops import merge_topk, topk_ref
+    from repro_torch.kernels.topk.ops import merge_topk, topk_plan, topk_ref
 
     rows = {}
     cases = (("beam", 256, 64, 256, 64, False),
              ("pool", 256, 256, 8, 256, False),
-             ("dups", 64, 600, 400, 100, True))
+             ("dups", 64, 600, 400, 100, True),          # pads to 1024
+             ("dups 4096", 4, 2000, 1000, 64, True))
     for tag, b, ca, cb, k, dups in cases:
         if dups:
             da = torch.randint(0, 4, (b, ca), generator=gen, device=dev).float()
@@ -172,7 +192,11 @@ def check_topk(torch, gen, dev) -> dict:
             raise AssertionError(f"top-k kernel != plain at {tag}")
         cpad = 1 << (ca + cb - 1).bit_length()
         lg = cpad.bit_length() - 1
+        plan = topk_plan(cpad)
         rows[tag] = dict(
+            plan=f"{plan.route} route, {plan.per_lane} pairs a thread, "
+                 f"{plan.threads} threads a row",
+            earlier_ms=EARLIER_MS.get(("bitonic_topk", tag)),
             shape=(b, ca + cb, cpad, k), max_abs_err=float(
                 (ov - rv).nan_to_num(posinf=0.0).abs().max()),
             ms=time_ms(lambda: merge_topk(ia, da, ib, db, k), torch),
@@ -184,19 +208,23 @@ def check_topk(torch, gen, dev) -> dict:
             bytes=b * (ca + cb) * 8 + b * k * 8,
             ops=b * (cpad // 2) * lg * (lg + 1) // 2,
         )
-        log(f"[kernels] bitonic_topk {tag} B,C,Cpad,k={rows[tag]['shape']}: "
-            f"bitwise equal; kernel {rows[tag]['ms']:.4f} ms, plain "
+        log(f"[kernels] bitonic_topk {tag} B,C,Cpad,k={rows[tag]['shape']} "
+            f"({rows[tag]['plan']}): bitwise equal; kernel "
+            f"{rows[tag]['ms']:.4f} ms (earlier: {rows[tag]['earlier_ms']}), plain "
             f"{rows[tag]['plain_ms']:.4f} ms, torch.topk "
             f"{rows[tag]['library_ms']:.4f} ms")
     return rows
 
 
 def check_dense_adc(torch, gen, dev) -> dict:
-    from repro_torch.kernels.pq_adc.ops import pq_adc, pq_adc_ref
+    from repro_torch.kernels.pq_adc.ops import adc_plan, pq_adc, pq_adc_ref
 
     rows = {}
     for tag, (b, q, n, m, k) in (("engine", (8, 32, 8192, 24, 256)),
                                  ("tier", (1, 8, 2048, 24, 256)),
+                                 ("tier g=4", (1, 4, 1024, 24, 256)),
+                                 ("tier g=2", (1, 2, 512, 24, 256)),
+                                 ("tier g=1", (1, 1, 256, 24, 256)),
                                  ("ragged", (3, 37, 300, 24, 256))):
         luts = torch.rand((b, q, m, k), generator=gen, device=dev) * 4.0
         codes = torch.randint(0, k, (b, n, m), generator=gen, device=dev,
@@ -209,7 +237,11 @@ def check_dense_adc(torch, gen, dev) -> dict:
                                  f"(max |diff| {(got - want).abs().max()})")
         idx = codes.long().transpose(1, 2)[:, None].expand(
             b, q, m, n).contiguous()
+        plan = adc_plan(b, q, n, m, k)
         rows[tag] = dict(
+            plan=f"rows={plan.rows} threads={plan.threads} "
+                 f"grid={plan.grid} smem={plan.smem}",
+            earlier_ms=EARLIER_MS.get(("pq_adc", tag)),
             shape=(b, q, n, m, k), max_abs_err=float((got - want).abs().max()),
             ms=time_ms(lambda: pq_adc(luts, codes), torch),
             plain_ms=time_ms(lambda: pq_adc_ref(luts, codes), torch),
@@ -218,8 +250,9 @@ def check_dense_adc(torch, gen, dev) -> dict:
             bytes=b * q * m * k * 4 + b * n * m + b * q * n * 4,
             ops=b * q * n * (m - 1),
         )
-        log(f"[kernels] pq_adc {tag} B,Q,N,M,K={rows[tag]['shape']}: "
-            f"bitwise equal; kernel {rows[tag]['ms']:.4f} ms, plain "
+        log(f"[kernels] pq_adc {tag} B,Q,N,M,K={rows[tag]['shape']} "
+            f"(adc_plan {rows[tag]['plan']}): bitwise equal; kernel "
+            f"{rows[tag]['ms']:.4f} ms (earlier: {rows[tag]['earlier_ms']}), plain "
             f"{rows[tag]['plain_ms']:.4f} ms, gather+sum "
             f"{rows[tag]['library_ms']:.4f} ms")
     return rows
@@ -242,6 +275,7 @@ def check_lut(torch, gen, dev) -> dict:
                                  f"(max |diff| {(got - want).abs().max()})")
         einsum = build_lut(cent, queries)
         rows[q] = dict(
+            earlier_ms=EARLIER_MS.get(("pq_lut", q)),
             shape=(q, m * dsub, m, k, dsub),
             max_abs_err=float((got - want).abs().max()),
             einsum_err=float((got - einsum).abs().max()),
@@ -291,6 +325,19 @@ def tier_line(tag, res, launches) -> str:
             f"workers); launches {launches}")
 
 
+def log_port_kernels(tag: str, ka) -> None:
+    """Each port kernel's device time and calls in a profiler table."""
+    from torch.autograd import DeviceType
+
+    for name in PORT_KERNELS:
+        ev = [e for e in ka if e.device_type == DeviceType.CUDA
+              and name in e.key]
+        total = sum(e.self_device_time_total for e in ev)
+        calls = sum(e.count for e in ev)
+        log(f"[profile] {tag} {name}: {total / 1e3:.3f} ms of device time "
+            f"over {calls} calls ({total / max(calls, 1):.2f} us each)")
+
+
 def profile_batch(torch, eng, queries, sp, out_dir: str) -> None:
     """One search under torch.profiler: device busy share and the ops that
     take the card's time, written to ``out_dir``."""
@@ -318,6 +365,7 @@ def profile_batch(torch, eng, queries, sp, out_dir: str) -> None:
         f"syncs {res.stats['host_sync_s']:.3f} s over "
         f"{res.stats['host_syncs']} syncs; op table in {out_dir}")
     log("[profile] top device ops:\n" + "\n".join(table.splitlines()[:16]))
+    log_port_kernels("engine batch", ka)
 
 
 def profile_tier(torch, tier, queries, out_dir: str) -> None:
@@ -343,6 +391,7 @@ def profile_tier(torch, tier, queries, out_dir: str) -> None:
         f"launches; op table in {out_dir}")
     log("[profile] tier top device ops:\n"
         + "\n".join(table.splitlines()[:14]))
+    log_port_kernels("tier", ka)
 
 
 def main(argv=None) -> int:
@@ -391,7 +440,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     logs = _build.build()
     for name, text in logs.items():
-        info = [ln for ln in text.splitlines() if "ptxas info" in ln]
+        info = [ln.strip() for ln in text.splitlines()
+                if "ptxas info" in ln or "stack frame" in ln]
         log(f"[build] {name}: " + " | ".join(info[-3:]))
     log(f"[build] kernels ready in {time.perf_counter() - t0:.1f} s "
         f"({sorted(logs)} compiled)")
@@ -579,7 +629,8 @@ def main(argv=None) -> int:
                 "replaces": replaces, "launches": launches_n,
                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": b, "bound_by": by,
-                "library_ms": row["library_ms"]}
+                "library_ms": row["library_ms"],
+                "earlier_ms": row["earlier_ms"]}
 
     record = {"kernels": [
         entry("pq_adc_slots", "src/repro_torch/kernels/pq_adc/adc_slots.cu",
@@ -596,16 +647,13 @@ def main(argv=None) -> int:
               tier_launches["pq_lut"], lut[1]),
     ]}
     for tag, row in [("pq_adc " + t, dense[t]) for t in dense] + \
+            [("bitonic_topk " + t, topk[t]) for t in topk] + \
             [(f"pq_lut Q={q}", lut[q]) for q in lut]:
         b, by = bound_ms(row["bytes"], row["ops"])
-        log(f"[report] {tag}: kernel {row['ms']:.4f} ms, plain "
-            f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
-            f"bound {b:.5f} ms ({by})")
-    pool_b, _ = bound_ms(topk["pool"]["bytes"], topk["pool"]["ops"])
-    log(f"[report] bitonic_topk at the pool merge: kernel "
-        f"{topk['pool']['ms']:.4f} ms, plain {topk['pool']['plain_ms']:.4f} "
-        f"ms, torch.topk {topk['pool']['library_ms']:.4f} ms, bound "
-        f"{pool_b:.5f} ms; record line times the beam merge")
+        log(f"[report] {tag}: kernel {row['ms']:.4f} ms (earlier: "
+            f"{row['earlier_ms']}), plain {row['plain_ms']:.4f} ms, library "
+            f"{row['library_ms']:.4f} ms, bound {b:.5f} ms ({by})")
+    log("[report] record line times bitonic_topk at the beam merge")
     log(f"[report] record line: pq_adc at the tier's (1, 8, 2048) and "
         f"pq_lut at Q=1 with their launches on the tier's closed-loop run; "
         f"pq_adc_slots and bitonic_topk with theirs on phase 5")

@@ -33,13 +33,13 @@ _VP, _I = ctypes.c_void_p, ctypes.c_int
 SOURCES = {
     "topk": ("topk/topk.cu", {
         "bitonic_topk_launch": [_VP, _VP, _I, _VP, _VP, _I, _I, _I, _I,
-                                _VP, _VP, _VP],
+                                _I, _VP, _VP, _VP],
     }),
     "pq_adc_slots": ("pq_adc/adc_slots.cu", {
         "adc_slots_launch": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
     }),
     "pq_adc": ("pq_adc/adc.cu", {
-        "adc_dense_launch": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
+        "adc_dense_launch": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _VP],
     }),
     "pq_lut": ("pq_lut/lut.cu", {
         "pq_lut_launch": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],

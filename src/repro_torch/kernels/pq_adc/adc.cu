@@ -7,82 +7,152 @@
 // The TPU kernel scores every (query, code row) pair of a block with one-hot
 // matmuls on the matrix unit and accumulates over m in grid order
 // (out = 0 + p0 + p1 + ..., each one-hot product exact).  Hopper has a fast
-// gather from shared memory, so here every lookup is one shared-memory load.
+// gather from shared memory, so here every lookup is a shared-memory load.
+// The tensor cores are no help: a one-hot product on wgmma rounds the LUT to
+// TF32 or bf16 (not exact in f32) and does K = 256 times the work.
 //
-// Design: one CTA per (tile of 2048 code rows, tile of up to 4 queries,
-// batch entry).  The CTA stages the whole (tq, M, K) LUT block of its
-// queries in shared memory once (96 KB at M = 24, K = 256, so two CTAs fit
-// on an SM), then each of its 256 threads scores 8 code rows against every
-// query of the tile, holding the 32 partial sums in registers and reading
-// each row's codes through L1.  The sum starts from the m = 0 entry and adds
-// in m order with __fadd_rn (no contraction into an FMA), so the result is
+// Bound: shared-memory lookups.  The bytes (LUTs, codes and output once
+// each, 16.3 MB at the engine's B = 8, Q = 32, N = 8192, M = 24, K = 256)
+// take 4.9 us; its 50.3 M lookups at 32 a clock on each of 132 SMs take
+// about 7 us, raised by bank conflicts (random codes).
+//
+// Design: one CTA per (tile of `rows` code rows, query, batch entry); the
+// row tile is sized from the shape by ops.py::adc_plan so that small calls
+// (the tier's (1, g, 256 g)) still spread over the SMs and large ones keep
+// the re-reads of each LUT from L2 few.  The CTA brings its query's LUT and
+// its code tile (each one contiguous span of device memory) into shared
+// memory with 16-byte cp.async copies issued together.  Each thread scores
+// RPT code rows, reading each row's codes from shared memory as 32-bit
+// words (four codes a load) and holding RPT sums in registers.  Tiles of 2
+// or 4 queries a CTA, their LUTs interleaved so one 8- or 16-byte load
+// fetched every query's entry, measured no faster on the H100 (31.9 us
+// against 31.2 at the engine's shape, launch/kernel_sweep.py), so a CTA
+// serves one query.  Each sum starts from the m = 0 entry and adds in m
+// order with __fadd_rn (no contraction into an FMA), so the result is
 // bitwise equal to the plain version (a gather, then a left-to-right sum
 // over m), to the slot-tiled kernel and to the reference's interpret-mode
-// accumulation.  Staging the whole block once, not one subspace slice per m
-// behind a barrier, keeps M round trips to L2 off each CTA's critical path.
-//
-// Bound: bytes.  The LUTs, the codes and the output each cross device
-// memory once (16.3 MB at the engine's B = 8, Q = 32, N = 8192, M = 24,
-// K = 256); each LUT block is read again from L2 by every 2048-row tile of
-// its batch entry (4 times there).
+// accumulation.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRows = 8;                    // code rows per thread
-constexpr int kTileN = kThreads * kRows;    // code rows per CTA
-constexpr int kMaxTQ = 4;                   // queries per CTA
+constexpr int kMaxThreads = 256;
 constexpr size_t kDefaultSmem = 48 * 1024;
-constexpr size_t kMaxSmem = 227 * 1024;     // a block's share on Hopper
+constexpr size_t kMaxSmem = 232448;         // a block's share on Hopper
 
-__global__ void adc_dense_kernel(const float* __restrict__ luts,
-                                 const uint8_t* __restrict__ codes,
-                                 float* __restrict__ out, int Q, int N, int M,
-                                 int K, int tq) {
-  extern __shared__ float lut_s[];            // (nq, M, K)
+__host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~size_t{15}; }
+
+// Shared-memory layout of a CTA; ops.py::adc_plan repeats these formulas.
+// The spans staged with stage_span keep their source's offset modulo 16,
+// so each region has 16 bytes of slack.
+__host__ __device__ inline size_t lut_region(int M, int K) {
+  return align16(static_cast<size_t>(M) * K * sizeof(float) + 16);
+}
+__host__ __device__ inline size_t code_region(int rows, int M) {
+  return align16(static_cast<size_t>(rows) * M + 16);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
+// Copy `nbytes` from `src` to shared memory at dst16 + (src mod 16), so that
+// 16-byte-aligned chunks of the source land on 16-byte-aligned addresses:
+// the aligned body goes by cp.async, the (at most 15-byte) head and tail by
+// plain byte copies.  Returns the offset src mod 16.
+__device__ __forceinline__ int stage_span(unsigned char* dst16,
+                                          const unsigned char* src,
+                                          int nbytes) {
+  const int pad = static_cast<int>(reinterpret_cast<uintptr_t>(src) & 15);
+  unsigned char* dst = dst16 + pad;
+  const int head = min(nbytes, (16 - pad) & 15);
+  const int chunks = (nbytes - head) >> 4;
+  const int tail = head + (chunks << 4);
+  for (int i = threadIdx.x; i < head; i += blockDim.x) dst[i] = src[i];
+  for (int c = threadIdx.x; c < chunks; c += blockDim.x)
+    cp_async16(dst + head + (c << 4), src + head + (c << 4));
+  for (int i = tail + threadIdx.x; i < nbytes; i += blockDim.x) dst[i] = src[i];
+  return pad;
+}
+
+template <int RPT>
+__global__ void __launch_bounds__(kMaxThreads)
+adc_dense_kernel(const float* __restrict__ luts,
+                 const uint8_t* __restrict__ codes, float* __restrict__ out,
+                 int Q, int N, int M, int K, int rows) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.z;
-  const int q0 = blockIdx.y * tq;
-  const int n0 = blockIdx.x * kTileN;
-  const int nq = min(tq, Q - q0);
+  const int q = blockIdx.y;
+  const int n0 = blockIdx.x * rows;
+  const int nrows = min(rows, N - n0);
 
-  const float* lut_g = luts + (static_cast<size_t>(b) * Q + q0) * M * K;
-  for (int t = threadIdx.x; t < nq * M * K; t += blockDim.x) lut_s[t] = lut_g[t];
+  // --- stage the LUT and the code tile, all copies in flight at once
+  const float* lut_g = luts + (static_cast<size_t>(b) * Q + q) * M * K;
+  const int lpad = stage_span(smem, reinterpret_cast<const unsigned char*>(lut_g),
+                              M * K * static_cast<int>(sizeof(float)));
+  const float* lut_s = reinterpret_cast<const float*>(smem + lpad);
+  unsigned char* code_base = smem + lut_region(M, K);
+  const int cpad = stage_span(
+      code_base, codes + (static_cast<size_t>(b) * N + n0) * M, nrows * M);
+  const unsigned char* code_s = code_base + cpad;
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   __syncthreads();
 
-  const uint8_t* code_b = codes + static_cast<size_t>(b) * N * M;
-  float acc[kMaxTQ][kRows];
+  // --- score RPT rows a thread
+  const bool words = (M & 3) == 0 && (cpad & 3) == 0;
+  const int nwords = (M + 3) >> 2;
+  float acc[RPT];
+  int rr[RPT];
 #pragma unroll
-  for (int q = 0; q < kMaxTQ; ++q) {
+  for (int i = 0; i < RPT; ++i) rr[i] = threadIdx.x + i * blockDim.x;
+  for (int w = 0; w < nwords; ++w) {
+    uint32_t word[RPT];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[q][r] = 0.0f;
-  }
-  for (int m = 0; m < M; ++m) {
+    for (int i = 0; i < RPT; ++i) {
+      // rows past the tile read code 0 (a valid entry) and are not stored
+      const unsigned char* row = code_s + rr[i] * M + 4 * w;
+      if (rr[i] >= nrows) {
+        word[i] = 0;
+      } else if (words) {
+        word[i] = *reinterpret_cast<const uint32_t*>(row);
+      } else {
+        uint32_t x = 0;
+        for (int j = 0; j < 4 && 4 * w + j < M; ++j) x |= uint32_t{row[j]} << (8 * j);
+        word[i] = x;
+      }
+    }
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int n = n0 + r * kThreads + threadIdx.x;
-      if (n < N) {
-        const int code = code_b[static_cast<size_t>(n) * M + m];
+    for (int j = 0; j < 4; ++j) {
+      const int m = 4 * w + j;
+      if (m >= M) break;
 #pragma unroll
-        for (int q = 0; q < kMaxTQ; ++q) {
-          if (q < nq) {
-            const float v = lut_s[(q * M + m) * K + code];
-            acc[q][r] = (m == 0) ? v : __fadd_rn(acc[q][r], v);
-          }
-        }
+      for (int i = 0; i < RPT; ++i) {
+        const float v = lut_s[m * K + static_cast<int>((word[i] >> (8 * j)) & 0xff)];
+        acc[i] = (m == 0) ? v : __fadd_rn(acc[i], v);
       }
     }
   }
+
+  float* out_q = out + (static_cast<size_t>(b) * Q + q) * N + n0;
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int n = n0 + r * kThreads + threadIdx.x;
-    if (n < N) {
-#pragma unroll
-      for (int q = 0; q < kMaxTQ; ++q) {
-        if (q < nq) out[(static_cast<size_t>(b) * Q + q0 + q) * N + n] = acc[q][r];
-      }
-    }
+  for (int i = 0; i < RPT; ++i) {
+    if (rr[i] < nrows) out_q[rr[i]] = acc[i];
+  }
+}
+
+using AdcKernel = void (*)(const float*, const uint8_t*, float*, int, int, int,
+                           int, int);
+
+AdcKernel pick(int rpt) {
+  switch (rpt) {
+    case 1: return adc_dense_kernel<1>;
+    case 2: return adc_dense_kernel<2>;
+    case 4: return adc_dense_kernel<4>;
+    case 8: return adc_dense_kernel<8>;
+    default: return nullptr;
   }
 }
 
@@ -92,25 +162,31 @@ extern "C" {
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
 // luts (B, Q, M, K) float32, codes (B, N, M) uint8 with every code < K,
-// out (B, Q, N) float32, all contiguous (checked by the wrapper).  A query's
-// (M, K) LUT must fit in a block's shared memory.
+// out (B, Q, N) float32, all contiguous (checked by the wrapper).  The row
+// tile (rows code rows, threads a multiple of 32 up to 256 with rows /
+// threads in {1, 2, 4, 8}) comes from ops.py::adc_plan; a tiling the kernel
+// does not take, or whose shared memory or grid exceeds the card's limits,
+// returns cudaErrorInvalidValue without launching.
 int adc_dense_launch(const float* luts, const uint8_t* codes, float* out,
-                     int B, int Q, int N, int M, int K, void* stream) {
+                     int B, int Q, int N, int M, int K, int rows, int threads,
+                     void* stream) {
   if (B == 0 || Q == 0 || N == 0) return 0;
-  const size_t per_query = static_cast<size_t>(M) * K * sizeof(float);
-  const int fit = static_cast<int>(kMaxSmem / per_query);
-  if (fit < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int tq = min(min(kMaxTQ, fit), Q);
-  const size_t smem = per_query * tq;
+  if (threads <= 0 || threads % 32 != 0 || threads > kMaxThreads ||
+      rows <= 0 || rows % threads != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const AdcKernel kernel = pick(rows / threads);
+  const size_t smem = lut_region(M, K) + code_region(rows, M);
+  if (kernel == nullptr || smem > kMaxSmem || Q > 65535 || B > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (smem > kDefaultSmem) {
     cudaError_t err = cudaFuncSetAttribute(
-        adc_dense_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  dim3 grid((N + kTileN - 1) / kTileN, (Q + tq - 1) / tq, B);
-  adc_dense_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      luts, codes, out, Q, N, M, K, tq);
+  dim3 grid((N + rows - 1) / rows, Q, B);
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      luts, codes, out, Q, N, M, K, rows);
   return static_cast<int>(cudaGetLastError());
 }
 

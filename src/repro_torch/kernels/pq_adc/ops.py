@@ -8,6 +8,8 @@ and ``pq_adc.launches`` count kernel launches.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.kernels import _build
@@ -53,10 +55,67 @@ def pq_adc_slots_tiled(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
 pq_adc_slots_tiled.launches = 0
 
 
-def pq_adc(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+SMS = 132                # streaming multiprocessors of an H100 SXM
+MAX_SMEM = 232448        # shared memory a block may use on Hopper
+MAX_GRID_YZ = 65535
+
+
+class AdcPlan(NamedTuple):
+    """The dense kernel's tiling of one call: ``rows`` code rows and
+    ``threads`` threads a CTA (one query a CTA), its dynamic shared memory
+    in bytes and the grid (row tiles, queries, batch entries)."""
+    rows: int
+    threads: int
+    smem: int
+    grid: tuple
+
+
+def _align16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def adc_smem(rows: int, m: int, k: int) -> int:
+    """Shared memory of a CTA, as ``adc.cu`` lays it out: one query's LUT
+    and the code tile, each with 16 bytes of slack for its alignment."""
+    return _align16(m * k * 4 + 16) + _align16(rows * m + 16)
+
+
+def adc_plan(b: int, q: int, n: int, m: int, k: int) -> AdcPlan:
+    """Tile a dense ADC call of (B, Q, N) for the card.
+
+    Every row tile that fits (64 to 2048 code rows a CTA, at most 256
+    threads, each scoring rows/threads rows) is scored by the bytes its
+    CTAs stage from L2: each row tile reads its batch entry's LUTs, each
+    query its codes.  Among the tiles that give at least one CTA per SM the
+    cheapest wins (ties to the shorter tile); where none does, the one with
+    the most CTAs.  Raises if no tiling fits the launch limits.
+    """
+    cands = []
+    for rows in (2048, 1024, 512, 256, 128, 64):
+        smem = adc_smem(rows, m, k)
+        grid = (-(-n // rows), q, b)
+        if smem > MAX_SMEM or max(grid[1:]) > MAX_GRID_YZ:
+            continue
+        staged = grid[0] * b * q * m * k * 4 + q * b * n * m
+        cands.append((grid[0] * q * b, staged,
+                      AdcPlan(rows, min(rows, 256), smem, grid)))
+    if not cands:
+        raise ValueError(f"no dense ADC tiling fits B={b}, Q={q}, M={m}, "
+                         f"K={k} (one query's LUT must fit shared memory, "
+                         f"B and Q the launch grid)")
+    full = [c for c in cands if c[0] >= SMS]
+    if full:
+        return min(full, key=lambda c: (c[1], c[2].rows))[2]
+    return max(cands, key=lambda c: (c[0], -c[1], -c[2].rows))[2]
+
+
+def pq_adc(lut: torch.Tensor, codes: torch.Tensor,
+           plan: AdcPlan | None = None) -> torch.Tensor:
     """(Q, M, K) x (N, M) -> (Q, N), or with a leading batch axis
     (B, Q, M, K) x (B, N, M) -> (B, Q, N): every query against every code
-    row (of its batch entry).  Bitwise equal to ``core.pq.adc``."""
+    row (of its batch entry).  Bitwise equal to ``core.pq.adc``.  On the
+    card the tiling is ``plan``, by default ``adc_plan``'s (tests and
+    ``launch/kernel_sweep.py`` pass others)."""
     batched = lut.dim() == 4
     if not batched:
         lut, codes = lut[None], codes[None]
@@ -69,15 +128,12 @@ def pq_adc(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     else:
         _check_card_inputs(lut, codes, "dense ADC")
         n = codes.shape[1]
-        if b > 65535 or (q + 3) // 4 > 65535:
-            raise ValueError(f"B={b} or Q={q} beyond the launch grid")
-        if m * k * 4 > 227 * 1024:
-            raise ValueError(f"one query's LUT (M={m}, K={k}) exceeds a "
-                             f"block's shared memory")
+        plan = plan or adc_plan(b, q, n, m, k)
         out = torch.empty((b, q, n), dtype=torch.float32, device=lut.device)
         lib = _build.load("pq_adc")
         err = lib.adc_dense_launch(lut.data_ptr(), codes.data_ptr(),
-                                   out.data_ptr(), b, q, n, m, k,
+                                   out.data_ptr(), b, q, n, m, k, plan.rows,
+                                   plan.threads,
                                    _build.stream_handle(lut))
         _build.check_launch("pq_adc", err)
         _build.count_launch(pq_adc)
@@ -106,5 +162,5 @@ def pq_adc_slots(luts: torch.Tensor, codes: torch.Tensor,
     return diag.permute(0, 2, 1).reshape(s, c)
 
 
-__all__ = ["adc_slots_ref", "pq_adc", "pq_adc_ref", "pq_adc_slots",
-           "pq_adc_slots_tiled"]
+__all__ = ["AdcPlan", "adc_plan", "adc_slots_ref", "adc_smem", "pq_adc",
+           "pq_adc_ref", "pq_adc_slots", "pq_adc_slots_tiled"]

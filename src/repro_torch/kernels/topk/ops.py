@@ -7,6 +7,8 @@ counts kernel launches from either wrapper.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.kernels import _build
@@ -15,7 +17,32 @@ from repro_torch.kernels.topk.ref import topk_ref
 MAX_ROW = 4096      # padded row length the kernel holds in shared memory
 
 
-def _launch(va, ia, vb, ib, k: int):
+class TopkPlan(NamedTuple):
+    """How ``topk.cu`` sorts a row padded to ``cpad``: ``n`` the length
+    sorted (``cpad``, at least 32), ``per_lane`` pairs a thread and
+    ``threads`` = n / per_lane a row (one CTA a row); ``route`` "warp" when
+    one warp holds the row (no shared-memory stage), else "smem"."""
+    route: str
+    n: int
+    per_lane: int
+    threads: int
+
+
+def topk_plan(cpad: int, per_lane: int | None = None) -> TopkPlan:
+    """The tiling for rows padded to ``cpad`` (a power of two, at most
+    ``MAX_ROW``): two pairs a thread up to 2048 (the fastest or within 5%
+    at 512 and 1024 on the H100, ``launch/kernel_sweep.py``), four at 4096
+    (a CTA's 1024-thread limit).  ``per_lane`` overrides the choice."""
+    if not 1 <= cpad <= MAX_ROW or cpad & (cpad - 1):
+        raise ValueError(f"cpad={cpad} must be a power of two <= {MAX_ROW}")
+    n = max(cpad, 32)
+    e = per_lane or min(max(n // 32, 1), 2 if n <= 2048 else 4)
+    if e not in (1, 2, 4, 8) or not 32 <= n // e <= 1024:
+        raise ValueError(f"{e} pairs a thread cannot hold a row of {n}")
+    return TopkPlan("warp" if n // e == 32 else "smem", n, e, n // e)
+
+
+def _launch(va, ia, vb, ib, k: int, plan: TopkPlan | None = None):
     rows, ca = va.shape
     cb = 0 if vb is None else vb.shape[1]
     c = ca + cb
@@ -34,6 +61,7 @@ def _launch(va, ia, vb, ib, k: int):
         raise TypeError("top-k indices must be int32")
     if (vb is not None and vb.shape != ib.shape) or va.shape != ia.shape:
         raise ValueError("values and indices must have the same shape")
+    plan = plan or topk_plan(cpad)
     out_v = torch.empty((rows, k), dtype=torch.float32, device=va.device)
     out_i = torch.empty((rows, k), dtype=torch.int32, device=va.device)
     lib = _build.load("topk")
@@ -41,7 +69,7 @@ def _launch(va, ia, vb, ib, k: int):
         va.data_ptr(), ia.data_ptr(), ca,
         None if vb is None else vb.data_ptr(),
         None if ib is None else ib.data_ptr(), cb,
-        rows, cpad, k, out_v.data_ptr(), out_i.data_ptr(),
+        rows, plan.n, k, plan.per_lane, out_v.data_ptr(), out_i.data_ptr(),
         _build.stream_handle(va))
     _build.check_launch("topk", err)
     _build.count_launch(bitonic_topk)
@@ -53,20 +81,23 @@ def _check_k(k: int, c: int):
         raise ValueError(f"k={k} must be in 1..{c} (the row length)")
 
 
-def bitonic_topk(vals: torch.Tensor, idxs: torch.Tensor, k: int):
+def bitonic_topk(vals: torch.Tensor, idxs: torch.Tensor, k: int,
+                 plan: TopkPlan | None = None):
     """(B, C) -> (B, k) smallest values with their indices, ascending by
-    (value, index)."""
+    (value, index).  On the card the route is ``plan``, by default
+    ``topk_plan``'s."""
     _check_k(k, vals.shape[1])
     if vals.device.type == "cpu":
         return topk_ref(vals, idxs, k)
-    return _launch(vals, idxs, None, None, k)
+    return _launch(vals, idxs, None, None, k, plan)
 
 
 bitonic_topk.launches = 0
 
 
 def merge_topk(ids_a: torch.Tensor, dists_a: torch.Tensor,
-               ids_b: torch.Tensor, dists_b: torch.Tensor, k: int):
+               ids_b: torch.Tensor, dists_b: torch.Tensor, k: int,
+               plan: TopkPlan | None = None):
     """Best k of each row of (B, Ca) ∪ (B, Cb) by (dist, id), ascending:
     ``(ids, dists)``.  Inputs must be deduplicated across a ∪ b (padding
     excepted): ids double as the sort payload.  The kernel reads both lists
@@ -76,8 +107,8 @@ def merge_topk(ids_a: torch.Tensor, dists_a: torch.Tensor,
         ov, oi = topk_ref(torch.cat([dists_a, dists_b], 1),
                           torch.cat([ids_a, ids_b], 1), k)
         return oi, ov
-    ov, oi = _launch(dists_a, ids_a, dists_b, ids_b, k)
+    ov, oi = _launch(dists_a, ids_a, dists_b, ids_b, k, plan)
     return oi, ov
 
 
-__all__ = ["bitonic_topk", "merge_topk", "topk_ref"]
+__all__ = ["TopkPlan", "bitonic_topk", "merge_topk", "topk_plan", "topk_ref"]

@@ -44,6 +44,11 @@ def test_adc_kernel_bitwise(cuda, s, c, m, k):
 @pytest.mark.parametrize("b,ca,cb,k,dup", [
     (256, 64, 256, 64, False), (256, 256, 8, 256, False),
     (13, 100, 100, 17, True), (1, 7, 0, 7, False), (4, 2000, 1000, 64, True),
+    # one case per padded length the routes take: 32 (a warp of one pair a
+    # lane), 512 and 1024 (the warp route's largest), 2048 (shared memory),
+    # all with heavy duplicates, and rows that leave a CTA's last warp idle
+    (9, 20, 12, 10, True), (33, 300, 100, 50, True), (64, 600, 400, 100, True),
+    (8, 1500, 100, 700, True), (3, 1024, 0, 1024, True),
 ])
 def test_topk_kernel_bitwise(cuda, b, ca, cb, k, dup):
     from repro_torch.kernels.topk.ops import bitonic_topk, merge_topk, topk_ref
@@ -67,6 +72,35 @@ def test_topk_kernel_bitwise(cuda, b, ca, cb, k, dup):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n,per_lane", [
+    (32, 1), (64, 1), (64, 2), (128, 4), (256, 8), (512, 1), (512, 2),
+    (512, 4), (512, 8), (1024, 1), (1024, 2), (1024, 8), (2048, 2),
+    (2048, 8), (4096, 4), (4096, 8),
+])
+def test_topk_every_route_bitwise(cuda, n, per_lane):
+    """Each register count of ``topk.cu`` (one warp a row or several),
+    forced through the wrapper's ``plan``, on duplicate-heavy rows split
+    over both lists, with k from 1 (a tournament) to the whole row."""
+    from repro_torch.kernels.topk.ops import merge_topk, topk_plan, topk_ref
+
+    b, c = 11, n // 2 + 3 if n > 32 else 27
+    g = torch.Generator(device=cuda).manual_seed(n + per_lane)
+    vals = torch.randint(0, 3, (b, c), generator=g, device=cuda).float()
+    vals[:, ::7] = float("inf")
+    idxs = torch.randperm(b * c, generator=g, device=cuda).reshape(b, c).int()
+    idxs[:, ::7] = 2**31 - 1          # the padding pair itself, repeated
+    plan = topk_plan(n, per_lane)
+    ca = c // 3
+    for k in (1, 5, c // 2, c):
+        rv, ri = topk_ref(vals, idxs, k)
+        mi, mv = merge_topk(idxs[:, :ca].contiguous(),
+                            vals[:, :ca].contiguous(),
+                            idxs[:, ca:].contiguous(),
+                            vals[:, ca:].contiguous(), k, plan=plan)
+        assert torch.equal(mv, rv) and torch.equal(mi, ri), k
+
+
+@pytest.mark.gpu
 def test_kernel_wrappers_raise_on_what_they_do_not_take(cuda):
     from repro_torch.kernels.pq_adc.ops import pq_adc_slots_tiled
     from repro_torch.kernels.topk.ops import bitonic_topk
@@ -86,6 +120,12 @@ def test_kernel_wrappers_raise_on_what_they_do_not_take(cuda):
     (1, 8, 2048, 24, 256),       # the tier's micro-batch of 8
     (3, 37, 300, 16, 128),       # ragged Q and N tiles
     (2, 5, 100, 64, 256),        # past 48 KB of shared memory
+    (1, 1, 256, 24, 256),        # the tier's groups of 1, 2, 3 and 4
+    (1, 2, 512, 24, 256),
+    (1, 3, 768, 24, 256),
+    (1, 4, 1024, 24, 256),
+    (3, 37, 300, 24, 256),       # ragged at the preset's M, K
+    (2, 3, 77, 5, 16),           # M not a multiple of 4: codes read bytewise
 ])
 def test_dense_adc_kernel_bitwise(cuda, b, q, n, m, k):
     from repro_torch.kernels.pq_adc.ops import (
@@ -107,6 +147,30 @@ def test_dense_adc_kernel_bitwise(cuda, b, q, n, m, k):
         sc = codes.reshape(s, n // q, m)
         assert torch.equal(pq_adc_slots(sl, sc, groups=b),
                            pq_adc_slots_tiled(sl, sc))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,threads", [(64, 64), (128, 64), (512, 128),
+                                          (1024, 128)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_dense_adc_every_tiling_bitwise(cuda, rows, threads, offset):
+    """Each tiling ``adc.cu`` takes (rows a thread 1, 2, 4, 8), forced
+    through the wrapper's ``plan``, with N not a multiple of the row tile
+    and (offset 1) LUTs and codes that start off a 16-byte boundary, so the
+    staging's head and tail copies run."""
+    from repro_torch.kernels.pq_adc.ops import (
+        AdcPlan, adc_smem, pq_adc, pq_adc_ref)
+
+    b, q, n, m, k = 2, 7, 1000, 24, 256
+    g = torch.Generator(device=cuda).manual_seed(rows + offset)
+    lbuf = torch.randn((offset + b * q * m * k,), generator=g, device=cuda)
+    cbuf = torch.randint(0, k, (offset + b * n * m,), generator=g,
+                         device=cuda, dtype=torch.uint8)
+    luts = lbuf[offset:].view(b, q, m, k)
+    codes = cbuf[offset:].view(b, n, m)
+    plan = AdcPlan(rows, threads, adc_smem(rows, m, k), (-(-n // rows), q, b))
+    assert torch.equal(pq_adc(luts, codes, plan=plan),
+                       pq_adc_ref(luts, codes))
 
 
 @pytest.mark.gpu
