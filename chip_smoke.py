@@ -14,12 +14,14 @@ Phases (any failure exits non-zero; nothing is swallowed):
 3. hold each kernel bitwise against its plain PyTorch version on the card
    at the main paths' shapes (plus ragged and duplicate-heavy cases) and
    time kernel, plain version and one library call (device time from CUDA
-   events, median of 25 single calls after warm-up, inputs resident in L2):
-   the slot ADC, the bitonic top-k (the beam and pool merges, rows that
-   pad to 1024 and 4096, printing ``topk_plan``'s tiling), the dense ADC at
-   the engine's (B, Q, N) = (8, 32, 8192), the tier's (1, g, 256 g) for
-   g = 8, 4, 2, 1 and a ragged shape (printing the tiling ``adc_plan``
-   chose for each), and the LUT build at Q = 1024, 32 and 1;
+   events, median of 25 single calls after warm-up, inputs resident in L2)
+   and the kernel alone (its mean duration in torch.profiler): the slot
+   ADC, the bitonic top-k (the beam and pool merges, rows that pad to 32,
+   64, 1024 and 4096: every route and register count of ``topk_plan``,
+   printed), the dense ADC at the engine's (B, Q, N) = (8, 32, 8192), the
+   tier's (1, g, 256 g) for g = 8, 4, 2, 1, a ragged shape and (1, 16,
+   8192), (1, 32, 8192) (every row tile of ``adc_plan``, printed), and the
+   LUT build at Q = 1024, 32 and 1;
 4. build the ``batann-serve`` index on the card: DEEP-like synthetic data,
    d = 96, n = 1,000,000, P = 8, R = 32, kNN k = 17, PQ M = 24, K = 256,
    head fraction 0.01 (each build stage timed);
@@ -73,10 +75,11 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 SPIN_CYCLES = 5_000_000       # ~2.5 ms at the H100's boost clock
 STAT_KEYS = ("hops", "inter_hops", "dist_comps", "reads", "lut_builds")
-# The kernels' times before the redesign of the dense ADC and the top-k
-# (PERF.md's kernel table: NVIDIA H100 80GB HBM3, 700 W, CUDA events,
-# median of 25 calls, inputs in L2), by (kernel, phase-3 shape); the
-# record line carries them as ``earlier_ms``.  None: not measured then.
+# The kernels' times before the redesign of the dense ADC and the top-k,
+# quoted from PERF.md's kernel table (NVIDIA H100 80GB HBM3, 700 W, CUDA
+# events, median of 25 calls, inputs in L2), by (kernel, phase-3 shape).
+# Not measured by this script: the log lines print them beside this run's
+# times, labelled so, and the record line leaves them out.
 EARLIER_MS = {
     ("pq_adc_slots", "slice"): 0.0109,
     ("bitonic_topk", "beam"): 0.0129, ("bitonic_topk", "pool"): 0.0129,
@@ -122,6 +125,35 @@ def time_ms(fn, torch, reps: int = 25, warm: int = 5) -> float:
     return statistics.median(times)
 
 
+def kernel_us(fn, name: str, torch, reps: int = 20) -> float:
+    """Mean device time in us of the kernels whose name holds ``name``
+    over the calls torch.profiler records of ``reps`` (it may drop one):
+    the kernel alone, without the launch gaps that the event pair of
+    ``time_ms`` brackets too."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and name in e.key]
+    calls = sum(e.count for e in ev)
+    if not reps // 2 <= calls <= reps:
+        raise AssertionError(f"the profiler saw {calls} {name} launches "
+                             f"of {reps}")
+    return sum(e.self_device_time_total for e in ev) / calls
+
+
+def earlier(row) -> str:
+    e = row["earlier_ms"]
+    return ("" if e is None else
+            f" (before the redesign {e:.4f} ms, quoted from PERF.md)")
+
+
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / F32_OPS_PER_S * 1e3
@@ -149,6 +181,8 @@ def check_adc(torch, gen, dev) -> dict:
             earlier_ms=EARLIER_MS.get(("pq_adc_slots", tag)),
             shape=(s, c, m, k), max_abs_err=err,
             ms=time_ms(lambda: pq_adc_slots_tiled(luts, codes), torch),
+            alone_us=kernel_us(lambda: pq_adc_slots_tiled(luts, codes),
+                               "adc_slots_kernel", torch),
             plain_ms=time_ms(lambda: adc_slots_ref(luts, codes), torch),
             library_ms=time_ms(lambda: torch.gather(luts, 2, idx).sum(1),
                                torch),
@@ -156,7 +190,9 @@ def check_adc(torch, gen, dev) -> dict:
             ops=s * c * (m - 1),
         )
         log(f"[kernels] pq_adc_slots {tag} S,C,M,K={rows[tag]['shape']}: "
-            f"bitwise equal; kernel {rows[tag]['ms']:.4f} ms, plain "
+            f"bitwise equal; kernel {rows[tag]['ms']:.4f} ms "
+            f"({rows[tag]['alone_us']:.2f} us alone){earlier(rows[tag])}, "
+            f"plain "
             f"{rows[tag]['plain_ms']:.4f} ms, gather+sum "
             f"{rows[tag]['library_ms']:.4f} ms")
     return rows
@@ -168,6 +204,8 @@ def check_topk(torch, gen, dev) -> dict:
     rows = {}
     cases = (("beam", 256, 64, 256, 64, False),
              ("pool", 256, 256, 8, 256, False),
+             ("short", 256, 20, 12, 10, False),          # pads to 32
+             ("short 64", 256, 40, 24, 16, False),       # pads to 64
              ("dups", 64, 600, 400, 100, True),          # pads to 1024
              ("dups 4096", 4, 2000, 1000, 64, True))
     for tag, b, ca, cb, k, dups in cases:
@@ -194,12 +232,14 @@ def check_topk(torch, gen, dev) -> dict:
         lg = cpad.bit_length() - 1
         plan = topk_plan(cpad)
         rows[tag] = dict(
-            plan=f"{plan.route} route, {plan.per_lane} pairs a thread, "
+            plan=f"{plan.route} route, pairs a thread {plan.per_lane}, "
                  f"{plan.threads} threads a row",
             earlier_ms=EARLIER_MS.get(("bitonic_topk", tag)),
             shape=(b, ca + cb, cpad, k), max_abs_err=float(
                 (ov - rv).nan_to_num(posinf=0.0).abs().max()),
             ms=time_ms(lambda: merge_topk(ia, da, ib, db, k), torch),
+            alone_us=kernel_us(lambda: merge_topk(ia, da, ib, db, k),
+                               "topk_kernel", torch),
             plain_ms=time_ms(lambda: topk_ref(torch.cat([da, db], 1),
                                               torch.cat([ia, ib], 1), k),
                              torch),
@@ -210,14 +250,16 @@ def check_topk(torch, gen, dev) -> dict:
         )
         log(f"[kernels] bitonic_topk {tag} B,C,Cpad,k={rows[tag]['shape']} "
             f"({rows[tag]['plan']}): bitwise equal; kernel "
-            f"{rows[tag]['ms']:.4f} ms (earlier: {rows[tag]['earlier_ms']}), plain "
+            f"{rows[tag]['ms']:.4f} ms ({rows[tag]['alone_us']:.2f} us "
+            f"alone){earlier(rows[tag])}, plain "
             f"{rows[tag]['plain_ms']:.4f} ms, torch.topk "
             f"{rows[tag]['library_ms']:.4f} ms")
     return rows
 
 
 def check_dense_adc(torch, gen, dev) -> dict:
-    from repro_torch.kernels.pq_adc.ops import adc_plan, pq_adc, pq_adc_ref
+    from repro_torch.kernels.pq_adc.ops import (
+        adc_plan, pq_adc, pq_adc_ref, sm_count)
 
     rows = {}
     for tag, (b, q, n, m, k) in (("engine", (8, 32, 8192, 24, 256)),
@@ -225,7 +267,9 @@ def check_dense_adc(torch, gen, dev) -> dict:
                                  ("tier g=4", (1, 4, 1024, 24, 256)),
                                  ("tier g=2", (1, 2, 512, 24, 256)),
                                  ("tier g=1", (1, 1, 256, 24, 256)),
-                                 ("ragged", (3, 37, 300, 24, 256))):
+                                 ("ragged", (3, 37, 300, 24, 256)),
+                                 ("tiles of 512", (1, 16, 8192, 24, 256)),
+                                 ("tiles of 1024", (1, 32, 8192, 24, 256))):
         luts = torch.rand((b, q, m, k), generator=gen, device=dev) * 4.0
         codes = torch.randint(0, k, (b, n, m), generator=gen, device=dev,
                               dtype=torch.uint8)
@@ -237,13 +281,15 @@ def check_dense_adc(torch, gen, dev) -> dict:
                                  f"(max |diff| {(got - want).abs().max()})")
         idx = codes.long().transpose(1, 2)[:, None].expand(
             b, q, m, n).contiguous()
-        plan = adc_plan(b, q, n, m, k)
+        plan = adc_plan(b, q, n, m, k, sm_count(dev))
         rows[tag] = dict(
             plan=f"rows={plan.rows} threads={plan.threads} "
                  f"grid={plan.grid} smem={plan.smem}",
             earlier_ms=EARLIER_MS.get(("pq_adc", tag)),
             shape=(b, q, n, m, k), max_abs_err=float((got - want).abs().max()),
             ms=time_ms(lambda: pq_adc(luts, codes), torch),
+            alone_us=kernel_us(lambda: pq_adc(luts, codes),
+                               "adc_dense_kernel", torch),
             plain_ms=time_ms(lambda: pq_adc_ref(luts, codes), torch),
             library_ms=time_ms(lambda: torch.gather(luts, 3, idx).sum(2),
                                torch),
@@ -252,7 +298,8 @@ def check_dense_adc(torch, gen, dev) -> dict:
         )
         log(f"[kernels] pq_adc {tag} B,Q,N,M,K={rows[tag]['shape']} "
             f"(adc_plan {rows[tag]['plan']}): bitwise equal; kernel "
-            f"{rows[tag]['ms']:.4f} ms (earlier: {rows[tag]['earlier_ms']}), plain "
+            f"{rows[tag]['ms']:.4f} ms ({rows[tag]['alone_us']:.2f} us "
+            f"alone){earlier(rows[tag])}, plain "
             f"{rows[tag]['plain_ms']:.4f} ms, gather+sum "
             f"{rows[tag]['library_ms']:.4f} ms")
     return rows
@@ -280,6 +327,8 @@ def check_lut(torch, gen, dev) -> dict:
             max_abs_err=float((got - want).abs().max()),
             einsum_err=float((got - einsum).abs().max()),
             ms=time_ms(lambda: pq_lut(queries, cent), torch),
+            alone_us=kernel_us(lambda: pq_lut(queries, cent),
+                               "pq_lut_kernel", torch),
             plain_ms=time_ms(lambda: pq_lut_ref(queries, cent), torch),
             library_ms=time_ms(lambda: build_lut(cent, queries), torch),
             bytes=q * m * dsub * 4 + m * k * dsub * 4 + q * m * k * 4,
@@ -287,7 +336,7 @@ def check_lut(torch, gen, dev) -> dict:
         )
         log(f"[kernels] pq_lut Q={q} d=96 M=24 K=256 dsub=4: bitwise equal "
             f"(max |diff| to the einsum {rows[q]['einsum_err']:.3g}); kernel "
-            f"{rows[q]['ms']:.4f} ms, plain {rows[q]['plain_ms']:.4f} ms, "
+            f"{rows[q]['ms']:.4f} ms ({rows[q]['alone_us']:.2f} us alone), plain {rows[q]['plain_ms']:.4f} ms, "
             f"einsum build_lut {rows[q]['library_ms']:.4f} ms")
     return rows
 
@@ -629,8 +678,7 @@ def main(argv=None) -> int:
                 "replaces": replaces, "launches": launches_n,
                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": b, "bound_by": by,
-                "library_ms": row["library_ms"],
-                "earlier_ms": row["earlier_ms"]}
+                "library_ms": row["library_ms"]}
 
     record = {"kernels": [
         entry("pq_adc_slots", "src/repro_torch/kernels/pq_adc/adc_slots.cu",
@@ -650,9 +698,10 @@ def main(argv=None) -> int:
             [("bitonic_topk " + t, topk[t]) for t in topk] + \
             [(f"pq_lut Q={q}", lut[q]) for q in lut]:
         b, by = bound_ms(row["bytes"], row["ops"])
-        log(f"[report] {tag}: kernel {row['ms']:.4f} ms (earlier: "
-            f"{row['earlier_ms']}), plain {row['plain_ms']:.4f} ms, library "
-            f"{row['library_ms']:.4f} ms, bound {b:.5f} ms ({by})")
+        log(f"[report] {tag}: kernel {row['ms']:.4f} ms "
+            f"({row['alone_us']:.2f} us alone){earlier(row)}, plain "
+            f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
+            f"bound {b:.5f} ms ({by})")
     log("[report] record line times bitonic_topk at the beam merge")
     log(f"[report] record line: pq_adc at the tier's (1, 8, 2048) and "
         f"pq_lut at Q=1 with their launches on the tier's closed-loop run; "

@@ -39,7 +39,7 @@ SOURCES = {
         "adc_slots_launch": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
     }),
     "pq_adc": ("pq_adc/adc.cu", {
-        "adc_dense_launch": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _VP],
+        "adc_dense_launch": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP],
     }),
     "pq_lut": ("pq_lut/lut.cu", {
         "pq_lut_launch": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],

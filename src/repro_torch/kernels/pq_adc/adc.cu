@@ -25,9 +25,8 @@
 // RPT code rows, reading each row's codes from shared memory as 32-bit
 // words (four codes a load) and holding RPT sums in registers.  Tiles of 2
 // or 4 queries a CTA, their LUTs interleaved so one 8- or 16-byte load
-// fetched every query's entry, measured no faster on the H100 (31.9 us
-// against 31.2 at the engine's shape, launch/kernel_sweep.py), so a CTA
-// serves one query.  Each sum starts from the m = 0 entry and adds in m
+// fetched every query's entry, measured no faster on the H100 (PERF.md),
+// so a CTA serves one query.  Each sum starts from the m = 0 entry and adds in m
 // order with __fadd_rn (no contraction into an FMA), so the result is
 // bitwise equal to the plain version (a gather, then a left-to-right sum
 // over m), to the slot-tiled kernel and to the reference's interpret-mode
@@ -163,16 +162,17 @@ extern "C" {
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
 // luts (B, Q, M, K) float32, codes (B, N, M) uint8 with every code < K,
 // out (B, Q, N) float32, all contiguous (checked by the wrapper).  The row
-// tile (rows code rows, threads a multiple of 32 up to 256 with rows /
-// threads in {1, 2, 4, 8}) comes from ops.py::adc_plan; a tiling the kernel
-// does not take, or whose shared memory or grid exceeds the card's limits,
+// tile of `rows` code rows comes from ops.py::adc_plan; a CTA runs
+// min(rows, 256) threads, each scoring rows / threads rows.  A tile the
+// kernel does not take (rows not a multiple of 32, or more than 8 rows a
+// thread), or whose shared memory or grid exceeds the card's limits,
 // returns cudaErrorInvalidValue without launching.
 int adc_dense_launch(const float* luts, const uint8_t* codes, float* out,
-                     int B, int Q, int N, int M, int K, int rows, int threads,
+                     int B, int Q, int N, int M, int K, int rows,
                      void* stream) {
   if (B == 0 || Q == 0 || N == 0) return 0;
-  if (threads <= 0 || threads % 32 != 0 || threads > kMaxThreads ||
-      rows <= 0 || rows % threads != 0)
+  const int threads = rows < kMaxThreads ? rows : kMaxThreads;
+  if (rows <= 0 || rows % 32 != 0 || rows % threads != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const AdcKernel kernel = pick(rows / threads);
   const size_t smem = lut_region(M, K) + code_region(rows, M);

@@ -8,6 +8,7 @@ and ``pq_adc.launches`` count kernel launches.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -58,12 +59,21 @@ pq_adc_slots_tiled.launches = 0
 SMS = 132                # streaming multiprocessors of an H100 SXM
 MAX_SMEM = 232448        # shared memory a block may use on Hopper
 MAX_GRID_YZ = 65535
+MAX_THREADS = 256        # adc.cu's threads a CTA: min(rows, MAX_THREADS)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of a CUDA device (read once)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 class AdcPlan(NamedTuple):
     """The dense kernel's tiling of one call: ``rows`` code rows and
-    ``threads`` threads a CTA (one query a CTA), its dynamic shared memory
-    in bytes and the grid (row tiles, queries, batch entries)."""
+    ``threads`` = min(rows, 256) threads a CTA (one query a CTA; the
+    launcher works the threads out from ``rows`` the same way), its
+    dynamic shared memory in bytes and the grid (row tiles, queries, batch
+    entries)."""
     rows: int
     threads: int
     smem: int
@@ -80,15 +90,18 @@ def adc_smem(rows: int, m: int, k: int) -> int:
     return _align16(m * k * 4 + 16) + _align16(rows * m + 16)
 
 
-def adc_plan(b: int, q: int, n: int, m: int, k: int) -> AdcPlan:
-    """Tile a dense ADC call of (B, Q, N) for the card.
+def adc_plan(b: int, q: int, n: int, m: int, k: int,
+             sms: int = SMS) -> AdcPlan:
+    """Tile a dense ADC call of (B, Q, N) for a card of ``sms`` SMs.
 
     Every row tile that fits (64 to 2048 code rows a CTA, at most 256
     threads, each scoring rows/threads rows) is scored by the bytes its
     CTAs stage from L2: each row tile reads its batch entry's LUTs, each
     query its codes.  Among the tiles that give at least one CTA per SM the
     cheapest wins (ties to the shorter tile); where none does, the one with
-    the most CTAs.  Raises if no tiling fits the launch limits.
+    the most CTAs.  Raises if no tiling fits the launch limits.  Larger
+    calls take longer tiles: (1, 8, 2048) 64 rows, (1, 7, 8192) 256,
+    (1, 16, 8192) 512, (1, 32, 8192) 1024, (8, 32, 8192) 2048.
     """
     cands = []
     for rows in (2048, 1024, 512, 256, 128, 64):
@@ -98,24 +111,22 @@ def adc_plan(b: int, q: int, n: int, m: int, k: int) -> AdcPlan:
             continue
         staged = grid[0] * b * q * m * k * 4 + q * b * n * m
         cands.append((grid[0] * q * b, staged,
-                      AdcPlan(rows, min(rows, 256), smem, grid)))
+                      AdcPlan(rows, min(rows, MAX_THREADS), smem, grid)))
     if not cands:
         raise ValueError(f"no dense ADC tiling fits B={b}, Q={q}, M={m}, "
                          f"K={k} (one query's LUT must fit shared memory, "
                          f"B and Q the launch grid)")
-    full = [c for c in cands if c[0] >= SMS]
+    full = [c for c in cands if c[0] >= sms]
     if full:
         return min(full, key=lambda c: (c[1], c[2].rows))[2]
     return max(cands, key=lambda c: (c[0], -c[1], -c[2].rows))[2]
 
 
-def pq_adc(lut: torch.Tensor, codes: torch.Tensor,
-           plan: AdcPlan | None = None) -> torch.Tensor:
+def pq_adc(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     """(Q, M, K) x (N, M) -> (Q, N), or with a leading batch axis
     (B, Q, M, K) x (B, N, M) -> (B, Q, N): every query against every code
     row (of its batch entry).  Bitwise equal to ``core.pq.adc``.  On the
-    card the tiling is ``plan``, by default ``adc_plan``'s (tests and
-    ``launch/kernel_sweep.py`` pass others)."""
+    card the tiling is ``adc_plan``'s for the device's SM count."""
     batched = lut.dim() == 4
     if not batched:
         lut, codes = lut[None], codes[None]
@@ -128,12 +139,11 @@ def pq_adc(lut: torch.Tensor, codes: torch.Tensor,
     else:
         _check_card_inputs(lut, codes, "dense ADC")
         n = codes.shape[1]
-        plan = plan or adc_plan(b, q, n, m, k)
+        plan = adc_plan(b, q, n, m, k, sm_count(lut.device))
         out = torch.empty((b, q, n), dtype=torch.float32, device=lut.device)
         lib = _build.load("pq_adc")
         err = lib.adc_dense_launch(lut.data_ptr(), codes.data_ptr(),
                                    out.data_ptr(), b, q, n, m, k, plan.rows,
-                                   plan.threads,
                                    _build.stream_handle(lut))
         _build.check_launch("pq_adc", err)
         _build.count_launch(pq_adc)
@@ -163,4 +173,4 @@ def pq_adc_slots(luts: torch.Tensor, codes: torch.Tensor,
 
 
 __all__ = ["AdcPlan", "adc_plan", "adc_slots_ref", "adc_smem", "pq_adc",
-           "pq_adc_ref", "pq_adc_slots", "pq_adc_slots_tiled"]
+           "pq_adc_ref", "pq_adc_slots", "pq_adc_slots_tiled", "sm_count"]

@@ -28,21 +28,19 @@ class TopkPlan(NamedTuple):
     threads: int
 
 
-def topk_plan(cpad: int, per_lane: int | None = None) -> TopkPlan:
+def topk_plan(cpad: int) -> TopkPlan:
     """The tiling for rows padded to ``cpad`` (a power of two, at most
-    ``MAX_ROW``): two pairs a thread up to 2048 (the fastest or within 5%
-    at 512 and 1024 on the H100, ``launch/kernel_sweep.py``), four at 4096
-    (a CTA's 1024-thread limit).  ``per_lane`` overrides the choice."""
+    ``MAX_ROW``): one pair a thread at 32 (one warp), two up to 2048 (the
+    fastest or within 5% at 512 and 1024 on the H100, PERF.md), four at
+    4096 (a CTA's 1024-thread limit)."""
     if not 1 <= cpad <= MAX_ROW or cpad & (cpad - 1):
         raise ValueError(f"cpad={cpad} must be a power of two <= {MAX_ROW}")
     n = max(cpad, 32)
-    e = per_lane or min(max(n // 32, 1), 2 if n <= 2048 else 4)
-    if e not in (1, 2, 4, 8) or not 32 <= n // e <= 1024:
-        raise ValueError(f"{e} pairs a thread cannot hold a row of {n}")
+    e = min(n // 32, 2 if n <= 2048 else 4)
     return TopkPlan("warp" if n // e == 32 else "smem", n, e, n // e)
 
 
-def _launch(va, ia, vb, ib, k: int, plan: TopkPlan | None = None):
+def _launch(va, ia, vb, ib, k: int):
     rows, ca = va.shape
     cb = 0 if vb is None else vb.shape[1]
     c = ca + cb
@@ -61,7 +59,7 @@ def _launch(va, ia, vb, ib, k: int, plan: TopkPlan | None = None):
         raise TypeError("top-k indices must be int32")
     if (vb is not None and vb.shape != ib.shape) or va.shape != ia.shape:
         raise ValueError("values and indices must have the same shape")
-    plan = plan or topk_plan(cpad)
+    plan = topk_plan(cpad)
     out_v = torch.empty((rows, k), dtype=torch.float32, device=va.device)
     out_i = torch.empty((rows, k), dtype=torch.int32, device=va.device)
     lib = _build.load("topk")
@@ -81,23 +79,20 @@ def _check_k(k: int, c: int):
         raise ValueError(f"k={k} must be in 1..{c} (the row length)")
 
 
-def bitonic_topk(vals: torch.Tensor, idxs: torch.Tensor, k: int,
-                 plan: TopkPlan | None = None):
+def bitonic_topk(vals: torch.Tensor, idxs: torch.Tensor, k: int):
     """(B, C) -> (B, k) smallest values with their indices, ascending by
-    (value, index).  On the card the route is ``plan``, by default
-    ``topk_plan``'s."""
+    (value, index).  On the card the route is ``topk_plan``'s."""
     _check_k(k, vals.shape[1])
     if vals.device.type == "cpu":
         return topk_ref(vals, idxs, k)
-    return _launch(vals, idxs, None, None, k, plan)
+    return _launch(vals, idxs, None, None, k)
 
 
 bitonic_topk.launches = 0
 
 
 def merge_topk(ids_a: torch.Tensor, dists_a: torch.Tensor,
-               ids_b: torch.Tensor, dists_b: torch.Tensor, k: int,
-               plan: TopkPlan | None = None):
+               ids_b: torch.Tensor, dists_b: torch.Tensor, k: int):
     """Best k of each row of (B, Ca) ∪ (B, Cb) by (dist, id), ascending:
     ``(ids, dists)``.  Inputs must be deduplicated across a ∪ b (padding
     excepted): ids double as the sort payload.  The kernel reads both lists
@@ -107,7 +102,7 @@ def merge_topk(ids_a: torch.Tensor, dists_a: torch.Tensor,
         ov, oi = topk_ref(torch.cat([dists_a, dists_b], 1),
                           torch.cat([ids_a, ids_b], 1), k)
         return oi, ov
-    ov, oi = _launch(dists_a, ids_a, dists_b, ids_b, k, plan)
+    ov, oi = _launch(dists_a, ids_a, dists_b, ids_b, k)
     return oi, ov
 
 

@@ -12,7 +12,7 @@
 //
 // Bound: latency.  At the slice's shapes (B = 256 rows of 320 or 264 pairs,
 // padded to 512) the kernel moves under 1 MB (0.3 us of bytes).  What its
-// time follows, measured on the H100 (launch/kernel_sweep.py), is the
+// time follows, measured on the H100 (PERF.md), is the
 // number of dependent network stages, about 0.1 us each, on top of about
 // 2 us of launch, loads and stores; neither the pairs a thread nor the
 // number of warps doing work moves it much.  So the kernel keeps every
@@ -202,7 +202,6 @@ TopkKernel pick(int e) {
     case 1: return topk_kernel<1>;
     case 2: return topk_kernel<2>;
     case 4: return topk_kernel<4>;
-    case 8: return topk_kernel<8>;
     default: return nullptr;
   }
 }
@@ -214,8 +213,8 @@ extern "C" {
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
 // vb/ib may be null when cb == 0.  n is the padded row length, a power of
 // two with ca + cb <= n <= 4096; 1 <= k <= ca + cb.  per_lane (E, from
-// ops.py::topk_plan) is 1, 2, 4 or 8 with 32 <= n / E <= 1024 threads a
-// row.  Anything else returns cudaErrorInvalidValue without launching.
+// ops.py::topk_plan) is 1, 2 or 4 with 32 <= n / E <= 1024 threads a row.
+// Anything else returns cudaErrorInvalidValue without launching.
 int bitonic_topk_launch(const float* va, const int* ia, int ca,
                         const float* vb, const int* ib, int cb, int rows,
                         int n, int k, int per_lane, float* out_v, int* out_i,

@@ -44,9 +44,10 @@ def test_adc_kernel_bitwise(cuda, s, c, m, k):
 @pytest.mark.parametrize("b,ca,cb,k,dup", [
     (256, 64, 256, 64, False), (256, 256, 8, 256, False),
     (13, 100, 100, 17, True), (1, 7, 0, 7, False), (4, 2000, 1000, 64, True),
-    # one case per padded length the routes take: 32 (a warp of one pair a
-    # lane), 512 and 1024 (the warp route's largest), 2048 (shared memory),
-    # all with heavy duplicates, and rows that leave a CTA's last warp idle
+    # padded lengths 32 (one warp, a pair a lane), 512 and 1024 (several
+    # warps, two pairs a thread, exchanges across warps in shared memory)
+    # and 2048, all with heavy duplicates, and rows that leave a CTA's last
+    # warp idle
     (9, 20, 12, 10, True), (33, 300, 100, 50, True), (64, 600, 400, 100, True),
     (8, 1500, 100, 700, True), (3, 1024, 0, 1024, True),
 ])
@@ -72,31 +73,28 @@ def test_topk_kernel_bitwise(cuda, b, ca, cb, k, dup):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,per_lane", [
-    (32, 1), (64, 1), (64, 2), (128, 4), (256, 8), (512, 1), (512, 2),
-    (512, 4), (512, 8), (1024, 1), (1024, 2), (1024, 8), (2048, 2),
-    (2048, 8), (4096, 4), (4096, 8),
-])
-def test_topk_every_route_bitwise(cuda, n, per_lane):
-    """Each register count of ``topk.cu`` (one warp a row or several),
-    forced through the wrapper's ``plan``, on duplicate-heavy rows split
-    over both lists, with k from 1 (a tournament) to the whole row."""
+@pytest.mark.parametrize("n", [32, 64, 128, 256, 512, 1024, 2048, 4096])
+def test_topk_every_route_bitwise(cuda, n):
+    """Each route and register count ``topk_plan`` picks (one warp of 1 or
+    2 pairs a lane, several warps of 2 pairs a thread, 4 at 4096), on
+    duplicate-heavy rows padded to n and split over both lists, with k
+    from 1 (a tournament) to the whole row."""
     from repro_torch.kernels.topk.ops import merge_topk, topk_plan, topk_ref
 
     b, c = 11, n // 2 + 3 if n > 32 else 27
-    g = torch.Generator(device=cuda).manual_seed(n + per_lane)
+    assert topk_plan(1 << (c - 1).bit_length()).n == n
+    g = torch.Generator(device=cuda).manual_seed(n)
     vals = torch.randint(0, 3, (b, c), generator=g, device=cuda).float()
     vals[:, ::7] = float("inf")
     idxs = torch.randperm(b * c, generator=g, device=cuda).reshape(b, c).int()
     idxs[:, ::7] = 2**31 - 1          # the padding pair itself, repeated
-    plan = topk_plan(n, per_lane)
     ca = c // 3
     for k in (1, 5, c // 2, c):
         rv, ri = topk_ref(vals, idxs, k)
         mi, mv = merge_topk(idxs[:, :ca].contiguous(),
                             vals[:, :ca].contiguous(),
                             idxs[:, ca:].contiguous(),
-                            vals[:, ca:].contiguous(), k, plan=plan)
+                            vals[:, ca:].contiguous(), k)
         assert torch.equal(mv, rv) and torch.equal(mi, ri), k
 
 
@@ -150,27 +148,29 @@ def test_dense_adc_kernel_bitwise(cuda, b, q, n, m, k):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows,threads", [(64, 64), (128, 64), (512, 128),
-                                          (1024, 128)])
+@pytest.mark.parametrize("b,q,n,rows", [
+    (1, 1, 300, 64), (1, 4, 8000, 128), (1, 7, 8000, 256),
+    (1, 16, 8000, 512), (1, 32, 8000, 1024), (1, 37, 8000, 2048),
+])
 @pytest.mark.parametrize("offset", [0, 1])
-def test_dense_adc_every_tiling_bitwise(cuda, rows, threads, offset):
-    """Each tiling ``adc.cu`` takes (rows a thread 1, 2, 4, 8), forced
-    through the wrapper's ``plan``, with N not a multiple of the row tile
+def test_dense_adc_every_tiling_bitwise(cuda, b, q, n, rows, offset):
+    """Each row tile ``adc_plan`` picks (1, 2, 4 and 8 rows a thread),
+    reached through the call's shape, with N not a multiple of the tile
     and (offset 1) LUTs and codes that start off a 16-byte boundary, so the
     staging's head and tail copies run."""
     from repro_torch.kernels.pq_adc.ops import (
-        AdcPlan, adc_smem, pq_adc, pq_adc_ref)
+        adc_plan, pq_adc, pq_adc_ref, sm_count)
 
-    b, q, n, m, k = 2, 7, 1000, 24, 256
+    m, k = 24, 256
+    if sm_count(cuda) == 132:                 # the tiles assume an H100 SXM
+        assert adc_plan(b, q, n, m, k, sm_count(cuda)).rows == rows
     g = torch.Generator(device=cuda).manual_seed(rows + offset)
     lbuf = torch.randn((offset + b * q * m * k,), generator=g, device=cuda)
     cbuf = torch.randint(0, k, (offset + b * n * m,), generator=g,
                          device=cuda, dtype=torch.uint8)
     luts = lbuf[offset:].view(b, q, m, k)
     codes = cbuf[offset:].view(b, n, m)
-    plan = AdcPlan(rows, threads, adc_smem(rows, m, k), (-(-n // rows), q, b))
-    assert torch.equal(pq_adc(luts, codes, plan=plan),
-                       pq_adc_ref(luts, codes))
+    assert torch.equal(pq_adc(luts, codes), pq_adc_ref(luts, codes))
 
 
 @pytest.mark.gpu

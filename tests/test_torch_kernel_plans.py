@@ -18,9 +18,10 @@ from _hyp import given, settings, strategies as st
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.pq_adc.ops import (
-    MAX_SMEM, SMS, AdcPlan, adc_plan, adc_smem, pq_adc, pq_adc_ref)
+    MAX_SMEM, MAX_THREADS, SMS, AdcPlan, adc_plan, adc_smem, pq_adc,
+    pq_adc_ref)
 from repro_torch.kernels.topk.ops import (
-    MAX_ROW, bitonic_topk, topk_plan, topk_ref)
+    MAX_ROW, bitonic_topk, merge_topk, topk_plan, topk_ref)
 
 
 def _coverage(plan: AdcPlan, b: int, q: int, n: int):
@@ -43,6 +44,7 @@ def test_adc_plan_covers_every_output_once(b, q, n, m, k):
     rows, empty = _coverage(plan, b, q, n)
     assert (rows == 1).all() and not empty
     assert plan.grid[1:] == (q, b)
+    assert plan.threads == min(plan.rows, MAX_THREADS)    # as adc.cu has it
     assert plan.threads % 32 == 0 and 32 <= plan.threads <= 256
     assert plan.rows % plan.threads == 0
     assert plan.rows // plan.threads in (1, 2, 4, 8)
@@ -85,20 +87,44 @@ def test_adc_plan_respects_shared_memory_and_grid():
         adc_plan(65536, 1, 64, 24, 256)
 
 
-def test_adc_wrapper_on_cpu_ignores_a_plan():
-    """On the CPU the wrapper runs the plain version whatever the plan."""
+@pytest.mark.parametrize("b,q,n,rows", [
+    (1, 1, 300, 64), (1, 4, 8000, 128), (1, 7, 8000, 256),
+    (1, 16, 8000, 512), (1, 32, 8000, 1024), (1, 37, 8000, 2048),
+])
+def test_adc_plan_reaches_every_tile(b, q, n, rows):
+    """Each row tile (1, 2, 4 and 8 rows a thread) is the plan's choice
+    at some shape, N not a multiple of it: the shapes the card tests and
+    ``chip_smoke.py`` phase 3 use to reach every branch of ``adc.cu``."""
+    plan = adc_plan(b, q, n, 24, 256)
+    assert plan.rows == rows and n % rows
+    assert plan.rows // plan.threads == max(rows // MAX_THREADS, 1)
+
+
+def test_adc_plan_follows_the_cards_sm_count():
+    """A card of fewer SMs (an H100 PCIe has 114) is full with fewer CTAs,
+    so the plan may take a longer, cheaper tile."""
+    assert adc_plan(1, 16, 8192, 24, 256).rows == 512        # 132 SMs
+    plan = adc_plan(1, 16, 8192, 24, 256, sms=114)
+    assert plan.rows == 1024 and plan.grid == (8, 16, 1)
+
+
+def test_adc_wrapper_on_cpu_runs_the_plain_version():
+    """On the CPU the wrapper runs the plain version, batched or not."""
     g = torch.Generator().manual_seed(0)
     luts = torch.rand((2, 3, 8, 16), generator=g)
     codes = torch.randint(0, 16, (2, 50, 8), generator=g, dtype=torch.uint8)
-    plan = adc_plan(2, 3, 50, 8, 16)
-    assert torch.equal(pq_adc(luts, codes, plan=plan), pq_adc_ref(luts, codes))
+    before = pq_adc.launches
+    assert torch.equal(pq_adc(luts, codes), pq_adc_ref(luts, codes))
+    assert torch.equal(pq_adc(luts[1], codes[1]),
+                       pq_adc_ref(luts[1:], codes[1:])[0])
+    assert pq_adc.launches == before                # no kernel launched
 
 
 @pytest.mark.parametrize("cpad", [1 << e for e in range(13)])
 def test_topk_plan_route_by_padded_length(cpad):
     plan = topk_plan(cpad)
     assert plan.n == max(cpad, 32)
-    assert plan.per_lane in (1, 2, 4, 8)
+    assert plan.per_lane in (1, 2, 4)          # topk.cu's instantiations
     assert plan.threads * plan.per_lane == plan.n
     assert plan.threads % 32 == 0 and 32 <= plan.threads <= 1024
     assert plan.n * 8 <= 48 * 1024            # the row in shared memory
@@ -113,21 +139,28 @@ def test_topk_plan_refuses_what_the_kernel_does_not_take(cpad):
         topk_plan(cpad)
 
 
-def test_topk_plan_refuses_a_register_count_that_does_not_fit():
-    assert topk_plan(512, 8).threads == 64
-    with pytest.raises(ValueError, match="pairs a thread"):
-        topk_plan(4096, 2)                     # 2048 threads
-    with pytest.raises(ValueError, match="pairs a thread"):
-        topk_plan(64, 4)                       # half a warp
+@pytest.mark.parametrize("cpad,per_lane,threads", [
+    (32, 1, 32), (64, 2, 32), (512, 2, 256), (4096, 4, 1024),
+])
+def test_topk_plan_pairs_a_thread(cpad, per_lane, threads):
+    """Each register count of ``topk.cu`` is the plan's choice at some
+    padded length: one warp of 1 or 2 pairs a lane, 2 pairs a thread over
+    several warps, 4 at 4096 (a CTA's 1024-thread limit)."""
+    plan = topk_plan(cpad)
+    assert (plan.per_lane, plan.threads) == (per_lane, threads)
 
 
-def test_topk_wrapper_on_cpu_ignores_a_plan():
+def test_topk_wrappers_on_cpu_run_the_plain_version():
     vals = torch.tensor([[3.0, 1.0, 2.0, 1.0]])
     idxs = torch.tensor([[0, 5, 2, 1]], dtype=torch.int32)
-    ov, oi = bitonic_topk(vals, idxs, 3, plan=topk_plan(32))
+    before = bitonic_topk.launches
+    ov, oi = bitonic_topk(vals, idxs, 3)
     rv, ri = topk_ref(vals, idxs, 3)
     assert torch.equal(ov, rv) and torch.equal(oi, ri)
     assert oi.tolist() == [[1, 5, 2]]
+    mi, mv = merge_topk(idxs[:, :1], vals[:, :1], idxs[:, 1:], vals[:, 1:], 3)
+    assert torch.equal(mv, rv) and torch.equal(mi, ri)
+    assert bitonic_topk.launches == before         # no kernel launched
 
 
 def _network_topk(vals, idxs, k, n, per_lane):
@@ -173,16 +206,15 @@ def _network_topk(vals, idxs, k, n, per_lane):
 
 
 @settings(max_examples=150, deadline=None)
-@given(c=st.integers(1, 1100), k=st.integers(1, 1100), dup=st.booleans(),
-       per_lane=st.sampled_from([1, 2, 4, 8]), seed=st.integers(0, 2**16))
-def test_topk_network_model_equals_plain(c, k, dup, per_lane, seed):
-    """The kernel's network (pruned and with its skips) gives the plain
-    version's pairs bitwise, duplicate-heavy rows and repeated padding
-    pairs included."""
+@given(c=st.integers(1, 4096), k=st.integers(1, 4096), dup=st.booleans(),
+       seed=st.integers(0, 2**16))
+def test_topk_network_model_equals_plain(c, k, dup, seed):
+    """The kernel's network (pruned and with its skips, at the plan's
+    pairs a thread) gives the plain version's pairs bitwise,
+    duplicate-heavy rows and repeated padding pairs included."""
     k = min(k, c)
     n = max(1 << (c - 1).bit_length(), 32)
-    if not 32 <= n // per_lane <= 1024:
-        per_lane = topk_plan(n).per_lane
+    per_lane = topk_plan(n).per_lane
     rng = np.random.default_rng(seed)
     if dup:
         vals = rng.integers(0, 3, size=c).astype(np.float32)
@@ -224,6 +256,14 @@ def test_launcher_parameters_match_argtypes(lib):
     assert set(found) == set(bound), (rel, found)
     for fn, kinds in found.items():
         assert [_CTYPE[k] for k in kinds] == bound[fn], (rel, fn)
+
+
+def test_adc_thread_rule_matches_the_launcher():
+    """``adc.cu`` works a CTA's threads out from its row tile, as
+    ``AdcPlan.threads`` does: min(rows, 256)."""
+    src = _build.source_path("pq_adc").read_text()
+    assert f"constexpr int kMaxThreads = {MAX_THREADS};" in src
+    assert "const int threads = rows < kMaxThreads ? rows : kMaxThreads;" in src
 
 
 def test_launcher_scan_counts_a_changed_signature():
