@@ -16,12 +16,18 @@ Phases (any failure exits non-zero; nothing is swallowed):
    time kernel, plain version and one library call (device time from CUDA
    events, median of 25 single calls after warm-up, inputs resident in L2)
    and the kernel alone (its mean duration in torch.profiler): the slot
-   ADC, the bitonic top-k (the beam and pool merges, rows that pad to 32,
-   64, 1024 and 4096: every route and register count of ``topk_plan``,
-   printed), the dense ADC at the engine's (B, Q, N) = (8, 32, 8192), the
-   tier's (1, g, 256 g) for g = 8, 4, 2, 1, a ragged shape and (1, 16,
-   8192), (1, 32, 8192) (every row tile of ``adc_plan``, printed), and the
-   LUT build at Q = 1024, 32 and 1;
+   ADC at the engine's (S, C) = (256, 256), the tier's (8, 256) and (1,
+   256), the ragged (100, 200) and a LUT past shared memory (M = 256):
+   every tile and route of ``adc_slots_plan``, printed; the bitonic top-k
+   (the beam and pool merges, rows that pad to 32, 64, 1024 and 4096:
+   every route and register count of ``topk_plan``, printed), the dense
+   ADC at the engine's (B, Q, N) = (8, 32, 8192), the tier's (1, g, 256 g)
+   for g = 8, 4, 2, 1, a ragged shape and (1, 16, 8192), (1, 32, 8192)
+   (every row tile of ``adc_plan``, printed), and the LUT build at Q =
+   1024 (the engine's enqueue), 256 (the most states that land in one
+   super-step at P * slots = 8 * 32), 32, 3, 1 (the tier's rebuild), a
+   ragged Q = 100 and dsub = 8 (every centroid tile and route of
+   ``lut_plan``, printed), each LUT also checked independent of its batch;
 4. build the ``batann-serve`` index on the card: DEEP-like synthetic data,
    d = 96, n = 1,000,000, P = 8, R = 32, kNN k = 17, PQ M = 24, K = 256,
    head fraction 0.01 (each build stage timed);
@@ -51,7 +57,8 @@ Phases (any failure exits non-zero; nothing is swallowed):
 
 Kernel launch counts are set to 0 just before each path runs and read just
 after: the slot ADC and the top-k on phase 5, the dense ADC and the LUT
-kernel on phase 8 (the tier), each of which must have launched.  The line
+kernel on phase 8 (the tier), each of which must have launched; and the
+slot ADC on the tier's einsum run (its micro-batches of S <= 8).  The line
 before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result, when
 no CUDA device is visible or the ``repro_torch`` package is not beside it.
@@ -75,23 +82,29 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 SPIN_CYCLES = 5_000_000       # ~2.5 ms at the H100's boost clock
 STAT_KEYS = ("hops", "inter_hops", "dist_comps", "reads", "lut_builds")
-# The kernels' times before the redesign of the dense ADC and the top-k,
-# quoted from PERF.md's kernel table (NVIDIA H100 80GB HBM3, 700 W, CUDA
-# events, median of 25 calls, inputs in L2), by (kernel, phase-3 shape).
-# Not measured by this script: the log lines print them beside this run's
-# times, labelled so, and the record line leaves them out.
+# Earlier times of the kernels, quoted from PERF.md's kernel table (NVIDIA
+# H100 80GB HBM3, 700 W, CUDA events, median of 25 calls, inputs in L2), by
+# (kernel, phase-3 shape): (ms, the commit whose kernels were measured) --
+# the dense ADC's and the top-k's from before their redesign, the slot
+# ADC's and the LUT build's from before theirs.  Not measured by this script: the
+# log lines print them beside this run's times, labelled so, and the record
+# line leaves them out.
 EARLIER_MS = {
-    ("pq_adc_slots", "slice"): 0.0109,
-    ("bitonic_topk", "beam"): 0.0129, ("bitonic_topk", "pool"): 0.0129,
-    ("pq_adc", "engine"): 0.0888, ("pq_adc", "tier"): 0.0610,
-    ("pq_adc", "ragged"): 0.0352,
-    ("pq_lut", 1024): 0.0317, ("pq_lut", 32): 0.0146, ("pq_lut", 1): 0.0068,
+    ("pq_adc_slots", "slice"): (0.0109, "commit 35fec6c"),
+    ("bitonic_topk", "beam"): (0.0129, "commit b388c20"),
+    ("bitonic_topk", "pool"): (0.0129, "commit b388c20"),
+    ("pq_adc", "engine"): (0.0888, "commit b388c20"),
+    ("pq_adc", "tier"): (0.0610, "commit b388c20"),
+    ("pq_adc", "ragged"): (0.0352, "commit b388c20"),
+    ("pq_lut", "Q=1024"): (0.0313, "commit 35fec6c"),
+    ("pq_lut", "Q=32"): (0.0146, "commit 35fec6c"),
+    ("pq_lut", "Q=1"): (0.0067, "commit 35fec6c"),
 }
 
 
 # the kernels' names as the profiler lists them (inside each key)
-PORT_KERNELS = ("adc_dense_kernel", "adc_slots_kernel", "topk_kernel",
-                "pq_lut_kernel")
+PORT_KERNELS = ("adc_dense_kernel", "adc_slots_staged", "adc_slots_direct",
+                "topk_kernel", "pq_lut_kernel")
 
 
 def log(*a):
@@ -151,7 +164,7 @@ def kernel_us(fn, name: str, torch, reps: int = 20) -> float:
 def earlier(row) -> str:
     e = row["earlier_ms"]
     return ("" if e is None else
-            f" (before the redesign {e:.4f} ms, quoted from PERF.md)")
+            f" ({e[1]}: {e[0]:.4f} ms, quoted from PERF.md)")
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -161,11 +174,15 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
 
 
 def check_adc(torch, gen, dev) -> dict:
-    from repro_torch.kernels.pq_adc.ops import adc_slots_ref, pq_adc_slots_tiled
+    from repro_torch.kernels.pq_adc.ops import (
+        adc_slots_plan, adc_slots_ref, pq_adc_slots_tiled, sm_count)
 
     rows = {}
     for tag, (s, c, m, k) in (("slice", (256, 256, 24, 256)),
-                              ("ragged", (100, 200, 24, 256))):
+                              ("tier", (8, 256, 24, 256)),
+                              ("tier S=1", (1, 256, 24, 256)),
+                              ("ragged", (100, 200, 24, 256)),
+                              ("LUT past smem", (4, 256, 256, 256))):
         luts = torch.rand((s, m, k), generator=gen, device=dev) * 4.0
         codes = torch.randint(0, k, (s, c, m), generator=gen, device=dev,
                               dtype=torch.uint8)
@@ -177,19 +194,23 @@ def check_adc(torch, gen, dev) -> dict:
                                  f"(max |diff| {(got - want).abs().max()})")
         err = float((got - want).abs().max())
         idx = codes.long().transpose(1, 2).contiguous()
+        plan = adc_slots_plan(s, c, m, k, sm_count(dev))
         rows[tag] = dict(
+            plan=f"{plan.route} route, tile={plan.tile} grid={plan.grid} "
+                 f"smem={plan.smem}",
             earlier_ms=EARLIER_MS.get(("pq_adc_slots", tag)),
             shape=(s, c, m, k), max_abs_err=err,
             ms=time_ms(lambda: pq_adc_slots_tiled(luts, codes), torch),
             alone_us=kernel_us(lambda: pq_adc_slots_tiled(luts, codes),
-                               "adc_slots_kernel", torch),
+                               "adc_slots_", torch),
             plain_ms=time_ms(lambda: adc_slots_ref(luts, codes), torch),
             library_ms=time_ms(lambda: torch.gather(luts, 2, idx).sum(1),
                                torch),
             bytes=s * m * k * 4 + s * c * m + s * c * 4,
             ops=s * c * (m - 1),
         )
-        log(f"[kernels] pq_adc_slots {tag} S,C,M,K={rows[tag]['shape']}: "
+        log(f"[kernels] pq_adc_slots {tag} S,C,M,K={rows[tag]['shape']} "
+            f"(adc_slots_plan {rows[tag]['plan']}): "
             f"bitwise equal; kernel {rows[tag]['ms']:.4f} ms "
             f"({rows[tag]['alone_us']:.2f} us alone){earlier(rows[tag])}, "
             f"plain "
@@ -307,22 +328,34 @@ def check_dense_adc(torch, gen, dev) -> dict:
 
 def check_lut(torch, gen, dev) -> dict:
     from repro_torch.core.pq import build_lut
-    from repro_torch.kernels.pq_lut.ops import pq_lut, pq_lut_ref
+    from repro_torch.kernels.pq_adc.ops import sm_count
+    from repro_torch.kernels.pq_lut.ops import lut_plan, pq_lut, pq_lut_ref
 
-    m, k, dsub = 24, 256, 4
-    cent = torch.randn((m, k, dsub), generator=gen, device=dev)
     rows = {}
-    for q in (1024, 32, 1):
+    for tag, (q, m, k, dsub) in (("Q=1024", (1024, 24, 256, 4)),
+                                 ("Q=256", (256, 24, 256, 4)),
+                                 ("Q=32", (32, 24, 256, 4)),
+                                 ("Q=1", (1, 24, 256, 4)),
+                                 ("Q=3", (3, 24, 256, 4)),
+                                 ("ragged", (100, 24, 256, 4)),
+                                 ("dsub=8", (100, 12, 128, 8))):
+        cent = torch.randn((m, k, dsub), generator=gen, device=dev)
         queries = torch.randn((q, m * dsub), generator=gen, device=dev)
         got = pq_lut(queries, cent)
         want = pq_lut_ref(queries, cent)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
-            raise AssertionError(f"LUT kernel != plain at Q={q} "
+            raise AssertionError(f"LUT kernel != plain at {tag} "
                                  f"(max |diff| {(got - want).abs().max()})")
+        if not torch.equal(pq_lut(queries[-1:], cent), got[-1:]):
+            raise AssertionError(f"LUT kernel's last row at {tag} depends "
+                                 f"on the batch")
         einsum = build_lut(cent, queries)
-        rows[q] = dict(
-            earlier_ms=EARLIER_MS.get(("pq_lut", q)),
+        plan = lut_plan(q, m, k, dsub, sm_count(dev))
+        rows[tag] = dict(
+            plan=f"{plan.route} route, tile_q={plan.tile_q} "
+                 f"tile_c={plan.tile_c} grid={plan.grid} smem={plan.smem}",
+            earlier_ms=EARLIER_MS.get(("pq_lut", tag)),
             shape=(q, m * dsub, m, k, dsub),
             max_abs_err=float((got - want).abs().max()),
             einsum_err=float((got - einsum).abs().max()),
@@ -334,10 +367,13 @@ def check_lut(torch, gen, dev) -> dict:
             bytes=q * m * dsub * 4 + m * k * dsub * 4 + q * m * k * 4,
             ops=q * m * k * (2 * dsub + 2) + (q * m + m * k) * (2 * dsub - 1),
         )
-        log(f"[kernels] pq_lut Q={q} d=96 M=24 K=256 dsub=4: bitwise equal "
-            f"(max |diff| to the einsum {rows[q]['einsum_err']:.3g}); kernel "
-            f"{rows[q]['ms']:.4f} ms ({rows[q]['alone_us']:.2f} us alone), plain {rows[q]['plain_ms']:.4f} ms, "
-            f"einsum build_lut {rows[q]['library_ms']:.4f} ms")
+        log(f"[kernels] pq_lut {tag} Q,d,M,K,dsub={rows[tag]['shape']} "
+            f"(lut_plan {rows[tag]['plan']}): bitwise equal, last row "
+            f"alone too (max |diff| to the einsum "
+            f"{rows[tag]['einsum_err']:.3g}); kernel {rows[tag]['ms']:.4f} "
+            f"ms ({rows[tag]['alone_us']:.2f} us alone){earlier(rows[tag])}, "
+            f"plain {rows[tag]['plain_ms']:.4f} ms, einsum build_lut "
+            f"{rows[tag]['library_ms']:.4f} ms")
     return rows
 
 
@@ -660,13 +696,19 @@ def main(argv=None) -> int:
 
     with AsyncServingTier(eng.index, eng.baton_params(kernel_sp), n_workers=4,
                           batch=8) as tier_e:
+        kernels.reset_launch_counts()
         einsum_res = tier_e.search(batches[1][:256])
+        einsum_launches = kernels.launch_counts()
+    if einsum_launches["pq_adc_slots"] == 0:
+        raise AssertionError("the tier's slot-ADC route (micro-batches of "
+                             "S <= 8) never launched pq_adc_slots")
     log(f"[tier einsum] the einsum LUT (mxu_tiled/bitonic), first 256 "
         f"queries, against phase 5: "
         f"parity {tier_parity(einsum_res, kern)}, "
         f"{int((einsum_res.ids != kern.ids[:256]).sum())} ids and "
         f"{int((einsum_res.dists != kern.dists[:256]).sum())} dists differ; "
-        f"throughput {einsum_res.throughput_qps:.1f} QPS")
+        f"throughput {einsum_res.throughput_qps:.1f} QPS; launches "
+        f"{einsum_launches} (pq_adc_slots: the tier's micro-batches, S <= 8)")
 
     if args.profile:
         profile_batch(torch, eng, batches[1], kernel_sp, args.profile)
@@ -692,11 +734,12 @@ def main(argv=None) -> int:
               tier_launches["pq_adc"], dense["tier"]),
         entry("pq_lut", "src/repro_torch/kernels/pq_lut/lut.cu",
               "src/repro/kernels/pq_lut/kernel.py:27",
-              tier_launches["pq_lut"], lut[1]),
+              tier_launches["pq_lut"], lut["Q=1"]),
     ]}
     for tag, row in [("pq_adc " + t, dense[t]) for t in dense] + \
             [("bitonic_topk " + t, topk[t]) for t in topk] + \
-            [(f"pq_lut Q={q}", lut[q]) for q in lut]:
+            [("pq_adc_slots " + t, adc[t]) for t in adc] + \
+            [("pq_lut " + t, lut[t]) for t in lut]:
         b, by = bound_ms(row["bytes"], row["ops"])
         log(f"[report] {tag}: kernel {row['ms']:.4f} ms "
             f"({row['alone_us']:.2f} us alone){earlier(row)}, plain "

@@ -36,13 +36,13 @@ SOURCES = {
                                 _I, _VP, _VP, _VP],
     }),
     "pq_adc_slots": ("pq_adc/adc_slots.cu", {
-        "adc_slots_launch": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
+        "adc_slots_launch": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP],
     }),
     "pq_adc": ("pq_adc/adc.cu", {
         "adc_dense_launch": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP],
     }),
     "pq_lut": ("pq_lut/lut.cu", {
-        "pq_lut_launch": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
+        "pq_lut_launch": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP],
     }),
 }
 _ERROR_STRING = {"topk": "topk_error_string",
@@ -60,7 +60,11 @@ def source_path(name: str) -> Path:
 
 
 def library_path(name: str) -> Path:
-    src = source_path(name).read_bytes()
+    """The library's path, named by a hash of its source, the headers
+    beside it (``*.cuh``) and the flags."""
+    path = source_path(name)
+    src = b"".join(p.read_bytes() for p in
+                   [path, *sorted(path.parent.glob("*.cuh"))])
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{key[:16]}.so"
 

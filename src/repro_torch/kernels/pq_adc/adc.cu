@@ -34,47 +34,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "stage.cuh"
+
 namespace {
 
 constexpr int kMaxThreads = 256;
 constexpr size_t kDefaultSmem = 48 * 1024;
 constexpr size_t kMaxSmem = 232448;         // a block's share on Hopper
-
-__host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~size_t{15}; }
-
-// Shared-memory layout of a CTA; ops.py::adc_plan repeats these formulas.
-// The spans staged with stage_span keep their source's offset modulo 16,
-// so each region has 16 bytes of slack.
-__host__ __device__ inline size_t lut_region(int M, int K) {
-  return align16(static_cast<size_t>(M) * K * sizeof(float) + 16);
-}
-__host__ __device__ inline size_t code_region(int rows, int M) {
-  return align16(static_cast<size_t>(rows) * M + 16);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
-}
-
-// Copy `nbytes` from `src` to shared memory at dst16 + (src mod 16), so that
-// 16-byte-aligned chunks of the source land on 16-byte-aligned addresses:
-// the aligned body goes by cp.async, the (at most 15-byte) head and tail by
-// plain byte copies.  Returns the offset src mod 16.
-__device__ __forceinline__ int stage_span(unsigned char* dst16,
-                                          const unsigned char* src,
-                                          int nbytes) {
-  const int pad = static_cast<int>(reinterpret_cast<uintptr_t>(src) & 15);
-  unsigned char* dst = dst16 + pad;
-  const int head = min(nbytes, (16 - pad) & 15);
-  const int chunks = (nbytes - head) >> 4;
-  const int tail = head + (chunks << 4);
-  for (int i = threadIdx.x; i < head; i += blockDim.x) dst[i] = src[i];
-  for (int c = threadIdx.x; c < chunks; c += blockDim.x)
-    cp_async16(dst + head + (c << 4), src + head + (c << 4));
-  for (int i = tail + threadIdx.x; i < nbytes; i += blockDim.x) dst[i] = src[i];
-  return pad;
-}
 
 template <int RPT>
 __global__ void __launch_bounds__(kMaxThreads)
@@ -96,8 +62,7 @@ adc_dense_kernel(const float* __restrict__ luts,
   const int cpad = stage_span(
       code_base, codes + (static_cast<size_t>(b) * N + n0) * M, nrows * M);
   const unsigned char* code_s = code_base + cpad;
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  cp_async_wait_all();
   __syncthreads();
 
   // --- score RPT rows a thread

@@ -32,7 +32,8 @@ def pq_adc_slots_tiled(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     """(S, M, K) float32 x (S, C, M) codes -> (S, C) float32 squared-L2.
 
     Bitwise equal to ``core.pq.adc_slots``; on the card the codes must be
-    uint8 (the index stores them so) and every code < K.
+    uint8 (the index stores them so) and every code < K, and the tiling is
+    ``adc_slots_plan``'s for the device's SM count.
     """
     s, c, m = codes.shape
     if luts.shape[:2] != (s, m):
@@ -41,12 +42,13 @@ def pq_adc_slots_tiled(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     if luts.device.type == "cpu":
         return adc_slots_ref(luts, codes)
     _check_card_inputs(luts, codes, "slot-ADC")
-    if s > 65535:
-        raise ValueError(f"S={s} > 65535")
+    k = luts.shape[2]
+    plan = adc_slots_plan(s, c, m, k, sm_count(luts.device))
     out = torch.empty((s, c), dtype=torch.float32, device=luts.device)
     lib = _build.load("pq_adc_slots")
     err = lib.adc_slots_launch(luts.data_ptr(), codes.data_ptr(),
-                               out.data_ptr(), s, c, m, luts.shape[2],
+                               out.data_ptr(), s, c, m, k, plan.tile,
+                               int(plan.route == "staged"),
                                _build.stream_handle(luts))
     _build.check_launch("pq_adc_slots", err)
     _build.count_launch(pq_adc_slots_tiled)
@@ -85,8 +87,9 @@ def _align16(x: int) -> int:
 
 
 def adc_smem(rows: int, m: int, k: int) -> int:
-    """Shared memory of a CTA, as ``adc.cu`` lays it out: one query's LUT
-    and the code tile, each with 16 bytes of slack for its alignment."""
+    """Shared memory of a CTA, as ``stage.cuh`` lays it out for ``adc.cu``
+    and the staged route of ``adc_slots.cu``: one query's LUT and the code
+    tile, each with 16 bytes of slack for its alignment."""
     return _align16(m * k * 4 + 16) + _align16(rows * m + 16)
 
 
@@ -120,6 +123,45 @@ def adc_plan(b: int, q: int, n: int, m: int, k: int,
     if full:
         return min(full, key=lambda c: (c[1], c[2].rows))[2]
     return max(cands, key=lambda c: (c[0], -c[1], -c[2].rows))[2]
+
+
+class SlotsPlan(NamedTuple):
+    """The slot-tiled kernel's tiling of one call: ``tile`` candidates (and
+    threads) a CTA, the route (``"staged"``: the slot's LUT and the code
+    tile in shared memory; ``"direct"``: lookups through L1, no shared
+    memory), its dynamic shared memory in bytes and the grid (candidate
+    tiles, slots)."""
+    tile: int
+    route: str
+    smem: int
+    grid: tuple
+
+
+def adc_slots_plan(s: int, c: int, m: int, k: int,
+                   sms: int = SMS) -> SlotsPlan:
+    """Tile a slot-ADC call of S slots x C candidates for a card of
+    ``sms`` SMs.
+
+    Where tiles of 256 candidates give a CTA per SM, the card is full and
+    throughput counts: the direct route, which waits on no staging barrier
+    and reads only the LUT entries it looks up.  Otherwise latency counts:
+    the staged route (codes and LUT in one round trip) with tiles of 128
+    where every CTA still has an SM of its own, else 256 (shorter tiles
+    have too few threads to stage a LUT quickly).  A LUT past shared memory
+    takes the direct route.  At M = 24, K = 256: (256, 256) direct 256, the
+    ragged (100, 200) staged 256, the tier's S <= 8 staged 128.  Raises if
+    S exceeds the launch grid.
+    """
+    if s > MAX_GRID_YZ:
+        raise ValueError(f"no slot-ADC tiling fits S={s} (S must fit the "
+                         f"launch grid)")
+    if s * -(-c // 256) >= sms:
+        tile, route = 256, "direct"
+    else:
+        tile = 128 if s * -(-c // 128) <= sms else 256
+        route = "staged" if adc_smem(tile, m, k) <= MAX_SMEM else "direct"
+    smem = adc_smem(tile, m, k) if route == "staged" else 0
+    return SlotsPlan(tile, route, smem, (-(-c // tile), s))
 
 
 def pq_adc(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
@@ -172,5 +214,6 @@ def pq_adc_slots(luts: torch.Tensor, codes: torch.Tensor,
     return diag.permute(0, 2, 1).reshape(s, c)
 
 
-__all__ = ["AdcPlan", "adc_plan", "adc_slots_ref", "adc_smem", "pq_adc",
-           "pq_adc_ref", "pq_adc_slots", "pq_adc_slots_tiled", "sm_count"]
+__all__ = ["AdcPlan", "SlotsPlan", "adc_plan", "adc_slots_plan",
+           "adc_slots_ref", "adc_smem", "pq_adc", "pq_adc_ref", "pq_adc_slots",
+           "pq_adc_slots_tiled", "sm_count"]

@@ -213,6 +213,87 @@ def test_new_wrappers_raise_on_what_they_do_not_take(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("q,m,k,dsub,tiles", [
+    (1, 24, 256, 4, (1, 32)), (3, 24, 256, 4, (1, 64)),
+    (32, 24, 256, 4, (2, 256)), (100, 24, 256, 4, (8, 256)),
+    (256, 24, 256, 4, (16, 256)), (1024, 24, 256, 4, (64, 256)),
+    (4096, 24, 256, 4, (256, 256)),
+    (100, 12, 128, 8, (4, 128)),           # the generic route
+    (3, 5, 33, 4, (1, 32)),                # K not a multiple of 32
+])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_lut_every_tiling_bitwise(cuda, q, m, k, dsub, tiles, offset):
+    """Each tiling and route ``lut_plan`` picks, reached through the
+    call's shape, with (offset 1) queries and centroids that start off a
+    16-byte boundary; and each entry independent of the batch."""
+    from repro_torch.kernels.pq_adc.ops import sm_count
+    from repro_torch.kernels.pq_lut.ops import lut_plan, pq_lut, pq_lut_ref
+
+    if sm_count(cuda) == 132:                 # the tiles assume an H100 SXM
+        assert lut_plan(q, m, k, dsub, sm_count(cuda))[:2] == tiles
+    g = torch.Generator(device=cuda).manual_seed(q * dsub + offset)
+    qbuf = torch.randn((offset + q * m * dsub,), generator=g, device=cuda)
+    cbuf = torch.randn((offset + m * k * dsub,), generator=g, device=cuda)
+    queries = qbuf[offset:].view(q, m * dsub)
+    cent = cbuf[offset:].view(m, k, dsub)
+    got = pq_lut(queries, cent)
+    assert torch.equal(got, pq_lut_ref(queries, cent))
+    assert torch.equal(pq_lut(queries[-1:], cent), got[-1:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,c,m,k,tile,route", [
+    (256, 256, 24, 256, 256, "direct"),     # the engine's slot route
+    (100, 200, 24, 256, 256, "staged"),     # ragged
+    (8, 256, 24, 256, 128, "staged"),       # the tier's micro-batch of 8
+    (1, 256, 24, 256, 128, "staged"),       # and of 1
+    (1, 32, 4, 16, 128, "staged"),
+    (40, 100, 5, 16, 128, "staged"),        # M not a multiple of 4
+    (300, 100, 5, 16, 256, "direct"),
+    (3, 77, 64, 256, 128, "staged"),        # past 48 KB of shared memory
+    (4, 300, 256, 256, 128, "direct"),      # a LUT past shared memory
+])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_adc_slots_every_tiling_bitwise(cuda, s, c, m, k, tile, route,
+                                        offset):
+    """Each tile and route ``adc_slots_plan`` picks, reached through the
+    call's shape, with (offset 1) LUTs and codes that start off a 16-byte
+    boundary, so the staging's head and tail copies and the bytewise code
+    reads run."""
+    from repro_torch.kernels.pq_adc.ops import (
+        adc_slots_plan, adc_slots_ref, pq_adc_slots_tiled, sm_count)
+
+    if sm_count(cuda) == 132:
+        plan = adc_slots_plan(s, c, m, k, sm_count(cuda))
+        assert (plan.tile, plan.route) == (tile, route)
+    g = torch.Generator(device=cuda).manual_seed(s * c + offset)
+    lbuf = torch.randn((offset + s * m * k,), generator=g, device=cuda)
+    cbuf = torch.randint(0, k, (offset + s * c * m,), generator=g,
+                         device=cuda, dtype=torch.uint8)
+    luts = lbuf[offset:].view(s, m, k)
+    codes = cbuf[offset:].view(s, c, m)
+    before = pq_adc_slots_tiled.launches
+    got = pq_adc_slots_tiled(luts, codes)
+    torch.cuda.synchronize()
+    assert pq_adc_slots_tiled.launches == before + 1
+    assert torch.equal(got, adc_slots_ref(luts, codes))
+
+
+@pytest.mark.gpu
+def test_planned_wrappers_raise_beyond_the_launch_grid(cuda):
+    from repro_torch.kernels.pq_adc.ops import pq_adc_slots_tiled
+    from repro_torch.kernels.pq_lut.ops import pq_lut
+
+    with pytest.raises(ValueError, match="tiling"):
+        pq_adc_slots_tiled(torch.zeros((65536, 1, 16), device=cuda),
+                           torch.zeros((65536, 1, 1), dtype=torch.uint8,
+                                       device=cuda))
+    with pytest.raises(ValueError, match="tiling"):
+        pq_lut(torch.zeros((1, 65536), device=cuda),
+               torch.zeros((65536, 16, 1), device=cuda))
+
+
+@pytest.mark.gpu
 def test_exec_tier_matches_engine_on_card(cuda):
     """A small index on the card: the tier (2 workers, batch 4) against the
     engine, bitwise, on the kernel routes with the LUT kernel."""

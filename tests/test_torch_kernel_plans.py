@@ -270,3 +270,239 @@ def test_launcher_scan_counts_a_changed_signature():
     src = ('extern "C" {\nint x_launch(const float* a, int n,\n'
            '             int m, void* stream) {\n  return 0;\n}\n}\n')
     assert _launchers(src) == {"x_launch": ["ptr", "int", "int", "ptr"]}
+
+
+# --- the LUT build's tiling (lut.cu) and the slot ADC's (adc_slots.cu)
+
+from repro_torch.kernels.pq_adc.ops import (  # noqa: E402
+    SlotsPlan, adc_slots_plan, adc_slots_ref, pq_adc_slots_tiled)
+from repro_torch.kernels.pq_lut.ops import (  # noqa: E402
+    TILES_C, TILES_Q, LutPlan, lut_plan, lut_smem, pq_lut, pq_lut_ref)
+
+
+def _lut_coverage(plan: LutPlan, q: int, m: int, k: int) -> np.ndarray:
+    """How many CTA threads write each LUT entry, from the grid as
+    ``lut.cu`` indexes it (q0 = x * tile_q, subspace y, c = z * tile_c +
+    thread; threads with c >= K store nothing)."""
+    hits = np.zeros((q, m, k), np.int64)
+    gx, gy, gz = plan.grid
+    for x in range(gx):
+        q0 = x * plan.tile_q
+        nq = min(plan.tile_q, q - q0)
+        assert nq > 0                       # no CTA past the last query
+        for z in range(gz):
+            c0 = z * plan.tile_c
+            assert c0 < k                   # no CTA past the last centroid
+            hits[q0:q0 + nq, :gy, c0:min(k, c0 + plan.tile_c)] += 1
+    return hits
+
+
+@settings(max_examples=200, deadline=None)
+@given(q=st.integers(1, 2500), m=st.sampled_from([1, 2, 8, 16, 24, 48]),
+       k=st.sampled_from([1, 16, 33, 64, 128, 256]),
+       dsub=st.sampled_from([1, 2, 4, 8, 40]))
+def test_lut_plan_covers_every_entry_once(q, m, k, dsub):
+    plan = lut_plan(q, m, k, dsub)
+    assert (_lut_coverage(plan, q, m, k) == 1).all()
+    assert plan.grid[1] == m
+    assert plan.tile_q in TILES_Q and plan.tile_c in TILES_C
+    assert plan.tile_c % 32 == 0 and 32 <= plan.tile_c <= 1024
+    assert plan.route == ("registers" if dsub == 4 else "generic")
+    assert plan.smem == lut_smem(plan.tile_q, plan.tile_c, dsub) <= MAX_SMEM
+    assert plan.grid[0] < 2**31 and max(plan.grid[1:]) <= 65535
+
+
+@pytest.mark.parametrize("q,least", [(1, SMS), (32, 2 * SMS),
+                                     (256, 2 * SMS), (1024, 2 * SMS),
+                                     (100, 2 * SMS), (4096, 2 * SMS)])
+def test_lut_plan_fills_the_card(q, least):
+    """At the main path's M = 24, K = 256, dsub = 4 every call has a CTA
+    per SM, and two where the shape allows it: the tier's Q = 1 rebuild,
+    the engine's landings (up to P * slots = 256 states) and its enqueue
+    of 1024 (a grid of one 32-query tile a subspace had 24 CTAs at
+    Q <= 32)."""
+    plan = lut_plan(q, 24, 256, 4)
+    assert plan.grid[0] * plan.grid[1] * plan.grid[2] >= least, plan
+
+
+def test_lut_plan_keeps_large_calls_cheap():
+    """Large calls take long query tiles, so the centroids are read from
+    L2 few times and few CTAs pay their fixed cost: 64 queries a CTA at
+    Q = 1024, 256 at Q = 4096, two CTAs per SM (384) each time."""
+    assert lut_plan(1024, 24, 256, 4)[:2] == (64, 256)
+    assert lut_plan(4096, 24, 256, 4)[:2] == (256, 256)
+    assert lut_plan(1024, 24, 256, 4).grid == (16, 24, 1)
+    assert lut_plan(4096, 24, 256, 4).grid == (16, 24, 1)
+
+
+def test_lut_plan_respects_shared_memory_and_grid():
+    # dsub = 40 on the generic route: centroids and queries still fit
+    assert lut_plan(5, 8, 256, 40).smem <= MAX_SMEM
+    assert lut_plan(4096, 2, 256, 1000).smem <= MAX_SMEM
+    # M is grid dimension y
+    assert lut_plan(1, 65535, 16, 4).grid[1] == 65535
+    with pytest.raises(ValueError, match="tiling"):
+        lut_plan(1, 65536, 16, 4)
+    # a single query slice past a block's shared memory
+    with pytest.raises(ValueError, match="tiling"):
+        lut_plan(1, 1, 32, 60000)
+
+
+@pytest.mark.parametrize("q,m,k,dsub,tiles,route", [
+    (1, 24, 256, 4, (1, 32), "registers"),        # the tier's rebuild
+    (3, 24, 256, 4, (1, 64), "registers"),
+    (32, 24, 256, 4, (2, 256), "registers"),
+    (100, 24, 256, 4, (8, 256), "registers"),     # ragged query tile
+    (256, 24, 256, 4, (16, 256), "registers"),    # a super-step's landings
+    (1024, 24, 256, 4, (64, 256), "registers"),   # the engine's enqueue
+    (4096, 24, 256, 4, (256, 256), "registers"),
+    (100, 12, 128, 8, (4, 128), "generic"),
+])
+def test_lut_plan_reaches_every_tile_and_route(q, m, k, dsub, tiles, route):
+    """Each centroid tile (32 to 256 threads), query tiles from 1 to 256
+    and both routes are the plan's choice at some shape: the shapes
+    ``chip_smoke.py`` phase 3 and the card tests use."""
+    plan = lut_plan(q, m, k, dsub)
+    assert (plan.tile_q, plan.tile_c, plan.route) == (*tiles, route)
+
+
+def test_lut_plan_follows_the_cards_sm_count():
+    """A card of fewer SMs is full with fewer CTAs, so the plan may take
+    longer, cheaper tiles."""
+    assert lut_plan(256, 24, 256, 4)[:2] == (16, 256)         # 132 SMs
+    plan = lut_plan(256, 24, 256, 4, sms=96)
+    assert plan[:2] == (32, 256) and plan.grid == (8, 24, 1)
+
+
+def test_lut_launcher_takes_the_plans_rules():
+    """``lut.cu`` lays out shared memory as ``lut_smem`` does, takes the
+    registers route at dsub = 4 only and runs ``tile_c`` threads a CTA."""
+    src = _build.source_path("pq_lut").read_text()
+    assert "const bool generic = dsub != 4;" in src
+    assert ("(static_cast<size_t>(tile_q) * (dsub + 1) +\n"
+            "          (generic ? static_cast<size_t>(tile_c) * dsub : 0))"
+            in src)
+    assert "kernel<<<grid, tile_c, smem," in src
+    assert lut_smem(3, 64, 4) == 3 * 5 * 4
+    assert lut_smem(3, 64, 8) == (3 * 9 + 64 * 8) * 4
+
+
+def _slots_coverage(plan: SlotsPlan, s: int, c: int) -> np.ndarray:
+    """How many CTAs write each (slot, candidate), from the grid as
+    ``adc_slots.cu`` indexes it (c0 = x * tile, slot y)."""
+    hits = np.zeros((s, c), np.int64)
+    for x in range(plan.grid[0]):
+        assert x * plan.tile < c            # no CTA past the last candidate
+        hits[:plan.grid[1], x * plan.tile:(x + 1) * plan.tile] += 1
+    return hits
+
+
+@settings(max_examples=200, deadline=None)
+@given(s=st.integers(1, 600), c=st.integers(1, 3000),
+       m=st.sampled_from([1, 4, 5, 8, 16, 24, 32, 64]),
+       k=st.sampled_from([1, 16, 64, 128, 256]))
+def test_adc_slots_plan_covers_every_output_once(s, c, m, k):
+    plan = adc_slots_plan(s, c, m, k)
+    assert (_slots_coverage(plan, s, c) == 1).all()
+    assert plan.grid[1] == s and plan.tile in (128, 256)
+    assert plan.route in ("staged", "direct")
+    # the card is full: direct; else staged, unless the LUT does not fit
+    full = s * -(-c // 256) >= SMS
+    assert (plan.route == "direct") == (
+        full or adc_smem(plan.tile, m, k) > MAX_SMEM)
+    assert plan.smem == (adc_smem(plan.tile, m, k)
+                         if plan.route == "staged" else 0)
+    assert plan.smem <= MAX_SMEM
+    assert plan.grid[0] < 2**31 and plan.grid[1] <= 65535
+
+
+@pytest.mark.parametrize("s,c,least", [
+    (256, 256, SMS),          # the engine's slot route: P * slots slots
+    (100, 200, 100),          # ragged: a CTA a slot, each on its own SM
+    (48, 256, 96),
+    (8, 256, 16), (4, 256, 8), (1, 256, 2),       # the tier's micro-batch
+])
+def test_adc_slots_plan_fills_the_card(s, c, least):
+    """The engine's shape has a CTA per SM; where the shape cannot fill
+    the card, the tier's S <= 8 included, the tiles halve to 128 as long
+    as every CTA keeps an SM of its own (not one CTA a slot)."""
+    plan = adc_slots_plan(s, c, 24, 256)
+    ctas = plan.grid[0] * plan.grid[1]
+    assert ctas >= least, plan
+    assert plan.tile == 256 or ctas <= SMS
+
+
+@pytest.mark.parametrize("s,c,m,k,tile,route", [
+    (256, 256, 24, 256, 256, "direct"),     # the engine's slot route
+    (100, 200, 24, 256, 256, "staged"),     # ragged
+    (8, 256, 24, 256, 128, "staged"),       # the tier's micro-batch
+    (1, 256, 24, 256, 128, "staged"),
+    (4, 256, 256, 256, 128, "direct"),      # a LUT past shared memory
+])
+def test_adc_slots_plan_reaches_every_tile_and_route(s, c, m, k, tile, route):
+    """Each tile and both routes are the plan's choice at some shape: the
+    shapes ``chip_smoke.py`` phase 3 and the card tests use."""
+    plan = adc_slots_plan(s, c, m, k)
+    assert (plan.tile, plan.route) == (tile, route)
+
+
+def test_adc_slots_plan_respects_shared_memory_and_grid():
+    # a 256 KB LUT cannot be staged: the direct route, any tile
+    for s in (4, 512):
+        plan = adc_slots_plan(s, 256, 256, 256)
+        assert plan.route == "direct" and plan.smem == 0
+    # M = 64 staged: a 64 KB LUT beside the code tile
+    plan = adc_slots_plan(16, 256, 64, 256)
+    assert plan.route == "staged" and 48 * 1024 < plan.smem <= MAX_SMEM
+    # S is grid dimension y
+    assert adc_slots_plan(65535, 32, 24, 256).grid[1] == 65535
+    with pytest.raises(ValueError, match="tiling"):
+        adc_slots_plan(65536, 32, 24, 256)
+
+
+def test_adc_slots_plan_follows_the_cards_sm_count():
+    assert adc_slots_plan(100, 200, 24, 256)[:2] == (256, "staged")
+    plan = adc_slots_plan(100, 200, 24, 256, sms=100)     # now full
+    assert (plan.tile, plan.route) == (256, "direct")
+    assert adc_slots_plan(60, 256, 24, 256)[:2] == (128, "staged")
+    assert adc_slots_plan(60, 256, 24, 256, sms=114)[:2] == (256, "staged")
+
+
+def test_adc_slots_launcher_takes_the_plans_rules():
+    """``adc_slots.cu`` runs ``tile`` threads a CTA on either route, lays
+    the staged route out as ``adc_smem`` and the direct one with no shared
+    memory; its ``extern "C"`` launcher takes the tile and the route."""
+    src = _build.source_path("pq_adc_slots").read_text()
+    assert "lut_region(M, K) + code_region(tile, M)" in src
+    assert "adc_slots_staged<<<grid, tile, smem, st>>>" in src
+    assert "adc_slots_direct<<<grid, tile, 0, st>>>" in src
+    assert ("int S, int C, int M, int K, int tile, int staged,\n"
+            "                     void* stream)" in src)
+
+
+def test_library_path_hashes_the_shared_header(tmp_path, monkeypatch):
+    """A changed ``stage.cuh`` names a new library for both ADC kernels,
+    so no stale build is loaded."""
+    before = {n: _build.library_path(n) for n in ("pq_adc", "pq_adc_slots")}
+    src = tmp_path / "pq_adc"
+    src.mkdir()
+    for f in ("adc.cu", "adc_slots.cu", "stage.cuh"):
+        (src / f).write_bytes((_build._PKG / "pq_adc" / f).read_bytes())
+    monkeypatch.setattr(_build, "_PKG", tmp_path)
+    assert {n: _build.library_path(n) for n in before} == before
+    (src / "stage.cuh").write_text("// changed\n")
+    for n, p in before.items():
+        assert _build.library_path(n) != p
+
+
+def test_new_plans_wrappers_on_cpu_run_the_plain_versions():
+    g = torch.Generator().manual_seed(1)
+    luts = torch.rand((3, 8, 16), generator=g)
+    codes = torch.randint(0, 16, (3, 40, 8), generator=g, dtype=torch.uint8)
+    queries, cent = torch.randn((5, 16), generator=g), torch.randn((4, 8, 4),
+                                                                   generator=g)
+    before = (pq_adc_slots_tiled.launches, pq_lut.launches)
+    assert torch.equal(pq_adc_slots_tiled(luts, codes),
+                       adc_slots_ref(luts, codes))
+    assert torch.equal(pq_lut(queries, cent), pq_lut_ref(queries, cent))
+    assert (pq_adc_slots_tiled.launches, pq_lut.launches) == before
