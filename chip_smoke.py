@@ -15,11 +15,15 @@ Phases (any failure exits non-zero; nothing is swallowed):
    at the main paths' shapes (plus ragged and duplicate-heavy cases) and
    time kernel, plain version and one library call (device time from CUDA
    events, median of 25 single calls after warm-up, inputs resident in L2)
-   and the kernel alone (its mean duration in torch.profiler): the slot
-   ADC at the engine's (S, C) = (256, 256), the tier's (8, 256) and (1,
+   and the kernel alone (its mean duration in torch.profiler; where three
+   traces in a row hold no device work, the mean of calls queued back to
+   back between CUDA events, and the line says so): the slot
+   ADC at the engine's (S, C) = (256, 256), the scatter-gather search's
+   (8192, 256) (P * B = 8 * 1024 branches), the tier's (8, 256) and (1,
    256), the ragged (100, 200) and a LUT past shared memory (M = 256):
    every tile and route of ``adc_slots_plan``, printed; the bitonic top-k
-   (the beam and pool merges, rows that pad to 32, 64, 1024 and 4096:
+   (the beam and pool merges at the engine's 256 rows and the
+   scatter-gather search's 8192, rows that pad to 32, 64, 1024 and 4096:
    every route and register count of ``topk_plan``, printed), the dense
    ADC at the engine's (B, Q, N) = (8, 32, 8192), the tier's (1, g, 256 g)
    for g = 8, 4, 2, 1, a ragged shape and (1, 16, 8192), (1, 32, 8192)
@@ -53,12 +57,30 @@ Phases (any failure exits non-zero; nothing is swallowed):
    requirement);
 9. the executable tier, open loop: 512 Poisson arrivals at half the
    closed-loop throughput; requires ``offered == completed + rejected`` and
-   parity on the completed ones; prints the same fields.
+   parity on the completed ones; prints the same fields;
+10. the per-slot engine path: batch 1 with ``fused=False`` (two-pass
+    merges, gather ADC), bitwise equal to phase 6 (ids, dists, five
+    counters, traces); prints its wall time;
+11. the paper's comparison through ``Deployment.run`` on batch 1 with the
+    card's ground truth: the baton engine (phase 4's index, kernel route;
+    its answers bitwise equal to phase 5's); the scatter-gather baseline
+    built by ``ScatterGatherEngine.build`` over phase 4's graph and
+    partitioning (each build stage timed, peak device memory), searched on
+    the kernel route (``mxu_tiled``, ``bitonic``) with the slot-ADC and
+    top-k launches counted, then on the plain route, the two bitwise equal
+    (ids, dists, summed counters, every ``part_*`` array), recall@10 >=
+    0.5; the exact oracle (``ExactEngine``), recall@10 >= 0.999.  For each
+    engine a ``[compare]`` line prints recall@10, the mean counters,
+    ``modeled_qps``, ``modeled_latency_s``, ``bottleneck`` and the card's
+    wall seconds and QPS; then the SG/baton ratios of reads and
+    dist_comps and the ratio of baton's modeled QPS to the baseline's
+    (findings, not requirements).
 
 Kernel launch counts are set to 0 just before each path runs and read just
 after: the slot ADC and the top-k on phase 5, the dense ADC and the LUT
 kernel on phase 8 (the tier), each of which must have launched; and the
-slot ADC on the tier's einsum run (its micro-batches of S <= 8).  The line
+slot ADC on the tier's einsum run (its micro-batches of S <= 8); the slot
+ADC and the top-k on phase 11's scatter-gather kernel route.  The line
 before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result, when
 no CUDA device is visible or the ``repro_torch`` package is not beside it.
@@ -138,27 +160,58 @@ def time_ms(fn, torch, reps: int = 25, warm: int = 5) -> float:
     return statistics.median(times)
 
 
-def kernel_us(fn, name: str, torch, reps: int = 20) -> float:
+def kernel_us(fn, name: str, torch, reps: int = 20,
+              tries: int = 3) -> dict:
     """Mean device time in us of the kernels whose name holds ``name``
     over the calls torch.profiler records of ``reps`` (it may drop one):
     the kernel alone, without the launch gaps that the event pair of
-    ``time_ms`` brackets too."""
+    ``time_ms`` brackets too: ``alone_us``, and ``alone_by`` for how it
+    was taken.
+
+    A trace that holds no device work at all is a failure of the tracing,
+    not of the kernel (a card's first traces sometimes come back empty):
+    it is taken again, up to ``tries`` times, and after that the time is
+    the mean of ``reps`` calls queued back to back behind a spin kernel,
+    between two CUDA events ("events": the kernel plus its launch gap).
+    A trace with device work but too few of the named kernels fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages()
-          if e.device_type == DeviceType.CUDA and name in e.key]
-    calls = sum(e.count for e in ev)
-    if not reps // 2 <= calls <= reps:
-        raise AssertionError(f"the profiler saw {calls} {name} launches "
-                             f"of {reps}")
-    return sum(e.self_device_time_total for e in ev) / calls
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+        if not dev:
+            continue
+        ev = [e for e in dev if name in e.key]
+        calls = sum(e.count for e in ev)
+        if not reps // 2 <= calls <= reps:
+            raise AssertionError(f"the profiler saw {calls} {name} launches "
+                                 f"of {reps}")
+        return dict(alone_us=sum(e.self_device_time_total for e in ev)
+                    / calls, alone_by="profiler")
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return dict(alone_us=a.elapsed_time(b) * 1e3 / reps, alone_by="events")
+
+
+def alone(row) -> str:
+    """The kernel's time alone as a log line gives it, with its method."""
+    if row["alone_by"] == "profiler":
+        return f"{row['alone_us']:.2f} us alone"
+    return (f"{row['alone_us']:.2f} us back to back by events, the "
+            f"profiler's traces held no device work")
 
 
 def earlier(row) -> str:
@@ -179,6 +232,7 @@ def check_adc(torch, gen, dev) -> dict:
 
     rows = {}
     for tag, (s, c, m, k) in (("slice", (256, 256, 24, 256)),
+                              ("SG", (8192, 256, 24, 256)),
                               ("tier", (8, 256, 24, 256)),
                               ("tier S=1", (1, 256, 24, 256)),
                               ("ragged", (100, 200, 24, 256)),
@@ -201,7 +255,7 @@ def check_adc(torch, gen, dev) -> dict:
             earlier_ms=EARLIER_MS.get(("pq_adc_slots", tag)),
             shape=(s, c, m, k), max_abs_err=err,
             ms=time_ms(lambda: pq_adc_slots_tiled(luts, codes), torch),
-            alone_us=kernel_us(lambda: pq_adc_slots_tiled(luts, codes),
+            **kernel_us(lambda: pq_adc_slots_tiled(luts, codes),
                                "adc_slots_", torch),
             plain_ms=time_ms(lambda: adc_slots_ref(luts, codes), torch),
             library_ms=time_ms(lambda: torch.gather(luts, 2, idx).sum(1),
@@ -212,7 +266,7 @@ def check_adc(torch, gen, dev) -> dict:
         log(f"[kernels] pq_adc_slots {tag} S,C,M,K={rows[tag]['shape']} "
             f"(adc_slots_plan {rows[tag]['plan']}): "
             f"bitwise equal; kernel {rows[tag]['ms']:.4f} ms "
-            f"({rows[tag]['alone_us']:.2f} us alone){earlier(rows[tag])}, "
+            f"({alone(rows[tag])}){earlier(rows[tag])}, "
             f"plain "
             f"{rows[tag]['plain_ms']:.4f} ms, gather+sum "
             f"{rows[tag]['library_ms']:.4f} ms")
@@ -225,6 +279,8 @@ def check_topk(torch, gen, dev) -> dict:
     rows = {}
     cases = (("beam", 256, 64, 256, 64, False),
              ("pool", 256, 256, 8, 256, False),
+             ("SG beam", 8192, 64, 256, 64, False),
+             ("SG pool", 8192, 256, 8, 256, False),
              ("short", 256, 20, 12, 10, False),          # pads to 32
              ("short 64", 256, 40, 24, 16, False),       # pads to 64
              ("dups", 64, 600, 400, 100, True),          # pads to 1024
@@ -259,7 +315,7 @@ def check_topk(torch, gen, dev) -> dict:
             shape=(b, ca + cb, cpad, k), max_abs_err=float(
                 (ov - rv).nan_to_num(posinf=0.0).abs().max()),
             ms=time_ms(lambda: merge_topk(ia, da, ib, db, k), torch),
-            alone_us=kernel_us(lambda: merge_topk(ia, da, ib, db, k),
+            **kernel_us(lambda: merge_topk(ia, da, ib, db, k),
                                "topk_kernel", torch),
             plain_ms=time_ms(lambda: topk_ref(torch.cat([da, db], 1),
                                               torch.cat([ia, ib], 1), k),
@@ -271,8 +327,8 @@ def check_topk(torch, gen, dev) -> dict:
         )
         log(f"[kernels] bitonic_topk {tag} B,C,Cpad,k={rows[tag]['shape']} "
             f"({rows[tag]['plan']}): bitwise equal; kernel "
-            f"{rows[tag]['ms']:.4f} ms ({rows[tag]['alone_us']:.2f} us "
-            f"alone){earlier(rows[tag])}, plain "
+            f"{rows[tag]['ms']:.4f} ms ({alone(rows[tag])})"
+            f"{earlier(rows[tag])}, plain "
             f"{rows[tag]['plain_ms']:.4f} ms, torch.topk "
             f"{rows[tag]['library_ms']:.4f} ms")
     return rows
@@ -309,7 +365,7 @@ def check_dense_adc(torch, gen, dev) -> dict:
             earlier_ms=EARLIER_MS.get(("pq_adc", tag)),
             shape=(b, q, n, m, k), max_abs_err=float((got - want).abs().max()),
             ms=time_ms(lambda: pq_adc(luts, codes), torch),
-            alone_us=kernel_us(lambda: pq_adc(luts, codes),
+            **kernel_us(lambda: pq_adc(luts, codes),
                                "adc_dense_kernel", torch),
             plain_ms=time_ms(lambda: pq_adc_ref(luts, codes), torch),
             library_ms=time_ms(lambda: torch.gather(luts, 3, idx).sum(2),
@@ -319,8 +375,8 @@ def check_dense_adc(torch, gen, dev) -> dict:
         )
         log(f"[kernels] pq_adc {tag} B,Q,N,M,K={rows[tag]['shape']} "
             f"(adc_plan {rows[tag]['plan']}): bitwise equal; kernel "
-            f"{rows[tag]['ms']:.4f} ms ({rows[tag]['alone_us']:.2f} us "
-            f"alone){earlier(rows[tag])}, plain "
+            f"{rows[tag]['ms']:.4f} ms ({alone(rows[tag])})"
+            f"{earlier(rows[tag])}, plain "
             f"{rows[tag]['plain_ms']:.4f} ms, gather+sum "
             f"{rows[tag]['library_ms']:.4f} ms")
     return rows
@@ -360,7 +416,7 @@ def check_lut(torch, gen, dev) -> dict:
             max_abs_err=float((got - want).abs().max()),
             einsum_err=float((got - einsum).abs().max()),
             ms=time_ms(lambda: pq_lut(queries, cent), torch),
-            alone_us=kernel_us(lambda: pq_lut(queries, cent),
+            **kernel_us(lambda: pq_lut(queries, cent),
                                "pq_lut_kernel", torch),
             plain_ms=time_ms(lambda: pq_lut_ref(queries, cent), torch),
             library_ms=time_ms(lambda: build_lut(cent, queries), torch),
@@ -371,7 +427,7 @@ def check_lut(torch, gen, dev) -> dict:
             f"(lut_plan {rows[tag]['plan']}): bitwise equal, last row "
             f"alone too (max |diff| to the einsum "
             f"{rows[tag]['einsum_err']:.3g}); kernel {rows[tag]['ms']:.4f} "
-            f"ms ({rows[tag]['alone_us']:.2f} us alone){earlier(rows[tag])}, "
+            f"ms ({alone(rows[tag])}){earlier(rows[tag])}, "
             f"plain {rows[tag]['plain_ms']:.4f} ms, einsum build_lut "
             f"{rows[tag]['library_ms']:.4f} ms")
     return rows
@@ -477,6 +533,112 @@ def profile_tier(torch, tier, queries, out_dir: str) -> None:
     log("[profile] tier top device ops:\n"
         + "\n".join(table.splitlines()[:14]))
     log_port_kernels("tier", ka)
+
+
+def per_slot_phase(eng, queries, plain, launches) -> None:
+    """Phase 10: ``queries`` with ``fused=False`` (two-pass merges, gather
+    ADC), bitwise equal to ``plain`` (the fused plain route)."""
+    from repro_torch import kernels
+    from repro_torch.configs.batann_serve import SearchParams
+
+    seed_sp = SearchParams(L=64, W=8, pool=256, slots=32, fused=False)
+    kernels.reset_launch_counts()
+    seed = eng.search(queries, seed_sp)
+    if kernels.launch_counts() != {k: 0 for k in launches}:
+        raise AssertionError("the per-slot path launched a kernel")
+    if not (same_answers(seed, plain)
+            and np.array_equal(seed.stats["trace"], plain.stats["trace"])
+            and seed.stats["n_supersteps"] == plain.stats["n_supersteps"]):
+        raise AssertionError("the per-slot path (fused=False) differs from "
+                             "the fused plain route (phase 6)")
+    log(f"[per-slot] batch 1 with fused=False (two-pass merges, gather): "
+        f"ids, dists, five counters and traces bitwise equal to phase 6; "
+        f"wall {seed.wall_s:.3f} s (fused plain route {plain.wall_s:.3f} s)")
+
+
+def compare_phase(torch, eng, ds, spec, kernel_sp, batches, gt1, kern,
+                  n_q: int, n: int) -> dict:
+    """Phase 11: batch 1 through ``Deployment.run`` on the baton engine, the
+    scatter-gather baseline (built over ``eng``'s graph and partitioning)
+    and the exact oracle, on ``eng``'s device; returns the reports."""
+    from repro_torch import kernels
+    from repro_torch.api.deployment import Deployment
+    from repro_torch.api.engine import ExactEngine, ScatterGatherEngine
+    from repro_torch.configs.batann_serve import DataSpec, ServeConfig
+
+    dev = eng.device
+    cfg = ServeConfig(name="batann-serve", data=DataSpec(n=n, n_queries=n_q),
+                      index=spec, search=kernel_sp)
+    reports = {}
+    rep = Deployment.from_parts(cfg, eng, ds).run(batches[1], gt1)
+    if not (rep.ids.tobytes() == kern.ids.tobytes()
+            and rep.dists.tobytes() == kern.dists.tobytes()):
+        raise AssertionError("Deployment.run (baton) differs from phase 5")
+    reports["baton"] = rep
+
+    sg = ScatterGatherEngine(device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sg.build(ds, spec, graph=eng.index.graph, assign=eng.index.assign)
+    t_build = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    sg_stages = {k: round(v, 3) for k, v in sg.build_timings.items()}
+    log(f"[sg build] P={spec.p} partition graphs (knn k={spec.knn_k}, "
+        f"R={spec.r}) over the phase-4 partitioning, PQ M={spec.pq_m} "
+        f"K={spec.pq_k}: {t_build:.1f} s; stages (s): {json.dumps(sg_stages)};"
+        f" peak device memory {peak:.2f} GiB")
+    sg_cfg = cfg.with_updates(index={"engine": "scatter_gather"})
+    warm_sg = sg.search(batches[0][:256], kernel_sp)
+    log(f"[sg] warm-up 256 queries: {warm_sg.wall_s:.2f} s")
+    kernels.reset_launch_counts()
+    rep = Deployment.from_parts(sg_cfg, sg, ds).run(batches[1], gt1)
+    sg_launches = kernels.launch_counts()
+    reports["scatter_gather"] = rep
+    plain_rep = Deployment.from_parts(
+        sg_cfg.with_updates(search={"adc_impl": "gather",
+                                    "merge_impl": "lexsort"}), sg, ds).run(
+        batches[1], gt1)
+    keys = [k for k in rep.stats if k not in ("host_syncs", "host_sync_s")]
+    if not (rep.ids.tobytes() == plain_rep.ids.tobytes()
+            and rep.dists.tobytes() == plain_rep.dists.tobytes()
+            and all(np.array_equal(rep.stats[k], plain_rep.stats[k])
+                    for k in keys)):
+        raise AssertionError("scatter-gather kernel route differs from its "
+                             "plain route")
+    for name in ("pq_adc_slots", "bitonic_topk"):
+        if sg_launches[name] == 0:
+            raise AssertionError(f"kernel {name} was never launched on the "
+                                 f"scatter-gather path")
+    if rep.recall < 0.5:
+        raise AssertionError(f"scatter-gather recall@10 {rep.recall} < 0.5")
+    log(f"[sg] kernel route (mxu_tiled, bitonic) bitwise equal to the plain "
+        f"route (gather, lexsort): ids, dists, {keys}; plain wall "
+        f"{plain_rep.wall_s:.3f} s; launches {sg_launches}; host syncs "
+        f"{rep.stats['host_syncs']}")
+
+    ex = ExactEngine(device=dev)
+    ex.build(ds, spec)
+    ex_dep = Deployment.from_parts(cfg.with_updates(index={"engine": "exact"}),
+                                   ex, ds)
+    ex_dep.run(batches[0][:64])                     # warm-up
+    rep = ex_dep.run(batches[1], gt1)
+    if rep.recall < 0.999:
+        raise AssertionError(f"exact recall@10 {rep.recall} < 0.999")
+    reports["exact"] = rep
+    for name, rep in reports.items():
+        log(f"[compare] {name}: recall@10 {rep.recall:.4f}, counters "
+            f"{json.dumps({k: round(v, 3) for k, v in rep.counters.items()})}"
+            f", modeled_qps {rep.modeled_qps:.1f}, modeled_latency_s "
+            f"{rep.modeled_latency_s:.6f}, bottleneck {rep.bottleneck}, "
+            f"card wall {rep.wall_s:.3f} s, QPS "
+            f"{rep.n_queries / rep.wall_s:.1f}")
+    b, g = reports["baton"], reports["scatter_gather"]
+    log(f"[compare] SG/baton reads "
+        f"{g.counters['reads'] / b.counters['reads']:.3f}, dist_comps "
+        f"{g.counters['dist_comps'] / b.counters['dist_comps']:.3f}; "
+        f"baton/SG modeled_qps {b.modeled_qps / g.modeled_qps:.3f}, card "
+        f"wall QPS {g.wall_s / b.wall_s:.3f}")
+    return reports
 
 
 def main(argv=None) -> int:
@@ -710,6 +872,12 @@ def main(argv=None) -> int:
         f"throughput {einsum_res.throughput_qps:.1f} QPS; launches "
         f"{einsum_launches} (pq_adc_slots: the tier's micro-batches, S <= 8)")
 
+    # --- 10. the per-slot engine path ------------------------------------------
+    per_slot_phase(eng, batches[1], plain, launches)
+    # --- 11. the paper's comparison through Deployment.run ----------------------
+    compare_phase(torch, eng, ds, spec, kernel_sp, batches,
+                  gt[args.queries:2 * args.queries], kern, n_q, args.n)
+
     if args.profile:
         profile_batch(torch, eng, batches[1], kernel_sp, args.profile)
 
@@ -742,7 +910,7 @@ def main(argv=None) -> int:
             [("pq_lut " + t, lut[t]) for t in lut]:
         b, by = bound_ms(row["bytes"], row["ops"])
         log(f"[report] {tag}: kernel {row['ms']:.4f} ms "
-            f"({row['alone_us']:.2f} us alone){earlier(row)}, plain "
+            f"({alone(row)}){earlier(row)}, plain "
             f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
             f"bound {b:.5f} ms ({by})")
     log("[report] record line times bitonic_topk at the beam merge")

@@ -51,13 +51,9 @@ from repro_torch.device import SyncMeter, resolve_device, timed
 I32 = torch.int32
 
 _NOT_PORTED = {
-    "fused": "run_simulated(fused=False) (the per-slot engine loop) is not "
-             "ported yet (ROADMAP queue 1 item 2)",
     "sector": "codes_mode='sector' (AiSAQ sector codes) is not ported yet "
               "(ROADMAP queue 1 item 3)",
     "lazy": "lazy_queue_lut=True is not ported yet (ROADMAP queue 1 item 4)",
-    "kmeans": "partitioner='kmeans' (balanced k-means) is not ported yet "
-              "(ROADMAP queue 1 item 2)",
 }
 
 
@@ -78,7 +74,9 @@ class BatonParams:
     n_starts: int = 4        # head-index entry points
     max_local_steps: int = 128
     max_supersteps: int = 512
-    fused: bool = True       # slot-batched scoring + single-pass merges
+    fused: bool = True       # slot-batched scoring + single-pass merges;
+    #                          False = the per-slot path (two-pass merges,
+    #                          gather ADC), bitwise equal
     adc_impl: str = "gather"  # "gather" (plain) | "mxu_tiled" (CUDA
     #                          slot-ADC kernel) | "mxu" (CUDA dense ADC
     #                          kernel); all three bitwise equal
@@ -104,8 +102,6 @@ class BatonParams:
             raise ValueError(f"lut_impl must be einsum|kernel: {self.lut_impl}")
         if self.trace_cap < 1:
             raise ValueError(f"trace_cap must be >= 1: {self.trace_cap}")
-        if not self.fused:
-            raise NotImplementedError(_NOT_PORTED["fused"])
         if self.lazy_queue_lut:
             raise NotImplementedError(_NOT_PORTED["lazy"])
 
@@ -189,7 +185,7 @@ def build_index(
             assign = part_mod.ldg_partition(graph.neighbors.cpu().numpy(), p,
                                             seed=seed)
         elif partitioner == "kmeans":
-            raise NotImplementedError(_NOT_PORTED["kmeans"])
+            assign = part_mod.balanced_kmeans(vectors, p, seed=seed)
         else:
             assign = part_mod.random_partition(n, p, seed=seed)
         node2part, node2local, local2global, _ = part_mod.build_maps(assign, p)
@@ -368,6 +364,9 @@ def local_advance(dev: DeviceState, shard: Shard, cfg: BatonParams,
     Each partition runs its own loop — it stops once a step made no progress
     or after ``max_local_steps`` — and a stopped partition is frozen while
     the others continue, as the reference's ``vmap``-ed ``while_loop`` does.
+    ``cfg.fused=False`` is the reference's per-slot path (a ``vmap`` of
+    ``step_disk(fused=False)``): the same one step over all P·S slots, with
+    the two-pass merges and the gather ADC.
     """
     P, S = dev.states.active.shape
     st = flat_rows(dev.states)
@@ -385,6 +384,7 @@ def local_advance(dev: DeviceState, shard: Shard, cfg: BatonParams,
         new = step_disk_batched(
             st, shard, st.lut, local & runnable[:, None], fposs, parts,
             adc_impl=cfg.adc_impl, merge_impl=cfg.merge_impl, groups=P,
+            fused=cfg.fused,
         )
         _, _, v = select_frontier(new.beam_ids, new.beam_expl, 1)
         new = new._replace(done=new.done | ~v.any(1))

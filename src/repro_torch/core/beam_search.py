@@ -16,7 +16,11 @@ function takes rows with a leading batch axis where the reference is
   slots: sector reads, exact distances into the rerank pool, candidate
   dedup, PQ scoring (``adc_impl``: plain gather, the CUDA slot-ADC kernel
   or the CUDA dense ADC kernel) and the beam/pool merges (``merge_impl``:
-  two stable sorts or the CUDA bitonic top-k kernel).
+  two stable sorts or the CUDA bitonic top-k kernel); ``fused=False`` takes
+  the two-pass merges (the reference's per-slot path).
+* ``search_disk`` — Alg. 1 to convergence for a batch of rows, in lock
+  step over ``step_disk_batched`` (the single-server and scatter-gather
+  driver).
 
 ``jnp.lexsort`` sorts by its last key first; ``_lexsort`` runs one stable
 sort per key, least significant first, which gives the same order.
@@ -29,7 +33,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import pq
-from repro_torch.core.state import INF, NO_ID, QueryState
+from repro_torch.core.state import INF, NO_ID, QueryState, where_rows
 from repro_torch.device import SyncMeter
 
 I32 = torch.int32
@@ -405,6 +409,7 @@ def step_disk_batched(
     adc_impl: str = "gather",
     merge_impl: str = "lexsort",
     groups: int = 1,           # slot blocks of the dense ADC (partitions)
+    fused: bool = True,
 ) -> QueryState:
     """One step of work for all S resident states: read the masked
     frontier sectors, rerank them into the pool, PQ-score the deduplicated
@@ -413,7 +418,13 @@ def step_disk_batched(
     ``adc_impl="mxu"`` scores through the dense ADC kernel with the
     reference's cost shape: the reference ``vmap``s this step over
     partitions, so each of the ``groups`` equal slot blocks is one dense
-    (S/G, S/G·W·R) product whose block diagonal is kept."""
+    (S/G, S/G·W·R) product whose block diagonal is kept.
+
+    ``fused=False`` is the reference's per-slot path (``vmap`` of
+    ``step_disk(fused=False)``) over all rows at once: the two-pass merges
+    and the gather ADC, whatever ``adc_impl`` and ``merge_impl`` say."""
+    if not fused:
+        adc_impl = "gather"
     S, W = masks.shape
     gids = torch.where(masks, states.beam_ids.gather(1, fposs), NO_ID)
     vecs, nbrs = read_sectors(shard, gids, parts)             # (S,W,d),(S,W,R)
@@ -421,8 +432,12 @@ def step_disk_batched(
 
     ed = sq_l2(vecs, states.query[:, None, :])                 # (S, W)
     ed = torch.where(gids == NO_ID, INF, ed)
-    pool_ids, pool_dists = merge_pool_fused(
-        states.pool_ids, states.pool_dists, gids, ed, impl=merge_impl)
+    if fused:
+        pool_ids, pool_dists = merge_pool_fused(
+            states.pool_ids, states.pool_dists, gids, ed, impl=merge_impl)
+    else:
+        pool_ids, pool_dists = merge_pool(states.pool_ids, states.pool_dists,
+                                          gids, ed)
 
     # order-independent explored mark: padding lanes repeat a clipped
     # position, so accumulate and test > 0 (a plain set could erase a mark)
@@ -457,10 +472,14 @@ def step_disk_batched(
     cand = torch.where(_dup_mask(cs), NO_ID, cs)
     cd = torch.where(cand == NO_ID, INF, cd_flat.gather(1, order))
 
-    beam_ids, beam_dists, beam_expl = merge_into_beam_fused(
-        states.beam_ids, states.beam_dists, beam_expl, cand, cd,
-        impl=merge_impl,
-    )
+    if fused:
+        beam_ids, beam_dists, beam_expl = merge_into_beam_fused(
+            states.beam_ids, states.beam_dists, beam_expl, cand, cd,
+            impl=merge_impl,
+        )
+    else:
+        beam_ids, beam_dists, beam_expl = merge_into_beam(
+            states.beam_ids, states.beam_dists, beam_expl, cand, cd)
 
     n_read = (gids != NO_ID).sum(1, dtype=I32)                 # (S,)
     c = states.counters
@@ -473,6 +492,50 @@ def step_disk_batched(
         beam_ids=beam_ids, beam_dists=beam_dists, beam_expl=beam_expl,
         pool_ids=pool_ids, pool_dists=pool_dists, counters=counters,
     )
+
+
+def search_disk(
+    states: QueryState,        # every leaf has leading (B,) axis
+    shard: Shard,
+    codebook: "torch.Tensor | None" = None,   # (M, K, dsub)
+    w: int = 8,
+    max_hops: int = 512,
+    fused: bool = True,
+    merge_impl: str = "lexsort",
+    parts: "torch.Tensor | None" = None,      # (B,) partition of each row
+    luts: "torch.Tensor | None" = None,       # (B, M, K), else built here
+    adc_impl: str = "gather",
+    meter: "SyncMeter | None" = None,
+) -> QueryState:
+    """Disk search (Alg. 1) of every row until its beam is fully explored,
+    its ``hops`` reach ``max_hops`` or it is ``done``.
+
+    The reference ``vmap``s a ``while_loop`` over one query; here the rows
+    run in lock step, one ``step_disk_batched`` for all of them per hop,
+    and a row whose condition fails is frozen (its step result discarded),
+    as the batched ``while_loop`` carries it unchanged.  One device->host
+    sync per hop decides whether any row is still live.  ``parts`` names
+    the stacked shard's row each search reads sectors from (default 0: a
+    single server); ``luts`` default to ``pq.build_lut(codebook, query)``.
+    """
+    meter = meter or SyncMeter()
+    b = states.beam_ids.shape[0]
+    dev = states.beam_ids.device
+    if parts is None:
+        parts = torch.zeros(b, dtype=I32, device=dev)
+    if luts is None:
+        luts = pq.build_lut(codebook, states.query)
+    st = states
+    while True:
+        fpos, _, fvalid = select_frontier(st.beam_ids, st.beam_expl, w)
+        live = fvalid[:, 0] & (st.counters.hops < max_hops) & ~st.done
+        if not meter.flag(live.any()):
+            break
+        new = step_disk_batched(st, shard, luts, fvalid & live[:, None], fpos,
+                                parts, adc_impl=adc_impl,
+                                merge_impl=merge_impl, fused=fused)
+        st = where_rows(live, new, st)
+    return st._replace(done=torch.ones_like(st.done))
 
 
 def topk_results(state: QueryState, k: int):

@@ -158,6 +158,46 @@ def empty_state(
     )
 
 
+def init_state(
+    query: torch.Tensor,
+    start_ids: torch.Tensor,
+    start_dists: torch.Tensor,
+    L: int,
+    P: int,
+    home: "torch.Tensor | int" = 0,
+    qid: "torch.Tensor | int" = 0,
+) -> QueryState:
+    """Seed states from start ids sorted by distance: query (B, d), starts
+    (B, s) and their distances (B, s) -> states with leading axis (B,).
+    NO_ID starts keep INF distances."""
+    b, s = start_ids.shape
+    if s > L:
+        raise ValueError(f"{s} start ids do not fit a beam of L={L}")
+    dev = query.device
+    beam_ids = torch.full((b, L), NO_ID, dtype=I32, device=dev)
+    beam_ids[:, :s] = start_ids.to(I32)
+    beam_dists = torch.full((b, L), INF, dtype=F32, device=dev)
+    beam_dists[:, :s] = start_dists.to(F32)
+    beam_dists = torch.where(beam_ids == NO_ID, INF, beam_dists)
+
+    def per_row(v):
+        return torch.as_tensor(v, dtype=I32, device=dev).expand(b).clone()
+
+    return QueryState(
+        query=query.to(F32),
+        beam_ids=beam_ids,
+        beam_dists=beam_dists,
+        beam_expl=torch.zeros((b, L), dtype=torch.bool, device=dev),
+        pool_ids=torch.full((b, P), NO_ID, dtype=I32, device=dev),
+        pool_dists=torch.full((b, P), INF, dtype=F32, device=dev),
+        counters=Counters.zeros((b,), device=dev),
+        active=torch.ones(b, dtype=torch.bool, device=dev),
+        done=torch.zeros(b, dtype=torch.bool, device=dev),
+        home=per_row(home),
+        qid=per_row(qid),
+    )
+
+
 def _leaves(tree):
     out = []
     tree_map(lambda x: out.append(x), tree)

@@ -323,3 +323,72 @@ def test_exec_tier_matches_engine_on_card(cuda):
         assert np.array_equal(got[f], want.stats[f]), f
     counts = kernels.launch_counts()
     assert counts["pq_lut"] > 0 and counts["bitonic_topk"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lut_impl", ["einsum", "kernel"])
+def test_scatter_gather_kernel_route_matches_plain_on_card(cuda, lut_impl):
+    """The baseline at a small n on the card: the slot-ADC and top-k kernel
+    route against the plain route (gather, lexsort), bitwise — ids, dists,
+    the summed counters and every per-partition array — with both kernels
+    launched."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.configs.batann_serve import IndexSpec
+    from repro_torch.core import scatter_gather
+    from repro_torch.data import synth
+
+    ds = synth.make_dataset("deep", n=3000, n_queries=48, seed=1,
+                            compute_gt_k=10, device="cuda")
+    spec = IndexSpec(p=4, r=24, pq_m=24, pq_k=256)
+    idx = scatter_gather.build_index(
+        ds.vectors, p=spec.p, r=spec.r, pq_m=spec.pq_m, pq_k=spec.pq_k,
+        partitioner="random", graph_mode="knn", knn_k=spec.knn_k,
+        device="cuda")
+    kw = dict(L=32, W=8, k=10, pool=128, lut_impl=lut_impl)
+    plain = scatter_gather.run_simulated(idx, ds.queries, **kw)
+    kernels.reset_launch_counts()
+    kern = scatter_gather.run_simulated(idx, ds.queries, adc_impl="mxu_tiled",
+                                        merge_impl="bitonic", **kw)
+    counts = kernels.launch_counts()
+    assert counts["pq_adc_slots"] > 0 and counts["bitonic_topk"] > 0
+    assert np.array_equal(kern[0], plain[0])
+    assert np.array_equal(kern[1], plain[1])
+    for key, val in plain[2].items():
+        if key != "host_sync_s":
+            assert np.array_equal(kern[2][key], val), key
+    hits = sum(len(set(a) & set(b)) for a, b in zip(kern[0].tolist(),
+                                                    ds.gt.tolist()))
+    assert hits / kern[0].size > 0.5
+
+
+@pytest.mark.gpu
+def test_deployment_runs_three_engines_on_card(cuda):
+    """``Deployment.run`` on the card for the baton engine, the baseline
+    and the oracle over one dataset: finite reports, the oracle's recall
+    1.0, the baseline's reads above the engine's."""
+    import math
+
+    from repro_torch.api.deployment import REPORT_FIELDS, Deployment
+    from repro_torch.configs.batann_serve import SERVE_CONFIGS
+
+    base = SERVE_CONFIGS["batann-serve-smoke"].with_updates(
+        data={"n": 4000, "n_queries": 64},
+        search={"adc_impl": "mxu_tiled", "merge_impl": "bitonic"})
+    reps, ds = {}, None
+    for engine in ("baton", "scatter_gather", "exact"):
+        dep = Deployment.from_config(
+            base.with_updates(index={"engine": engine}), dataset=ds,
+            device="cuda")
+        ds = dep.dataset
+        assert dep.engine.device.type == "cuda"
+        reps[engine] = dep.run()
+    for engine, rep in reps.items():
+        assert tuple(rep.to_dict()) == REPORT_FIELDS
+        assert math.isfinite(rep.modeled_qps) and rep.modeled_qps > 0
+        assert rep.wall_s > 0 and rep.engine == engine
+    assert reps["exact"].recall == 1.0
+    assert reps["baton"].recall > 0.8 and reps["scatter_gather"].recall > 0.8
+    assert reps["scatter_gather"].counters["reads"] > \
+        reps["baton"].counters["reads"]

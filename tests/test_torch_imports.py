@@ -79,6 +79,17 @@ def test_cuda_without_a_card_raises(no_cuda):
         tdev.resolve_device("meta")
 
 
+def test_every_engine_and_the_deployment_default_to_cuda(no_cuda):
+    from repro_torch.api import deployment, engine
+    from repro_torch.configs.batann_serve import SERVE_CONFIGS
+
+    for cls in engine.ENGINES.values():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cls()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        deployment.Deployment.from_config(SERVE_CONFIGS["batann-serve-sg"])
+
+
 def test_env_record_names_what_is_missing(no_cuda, monkeypatch):
     monkeypatch.setattr(tdev, "nvcc_path", lambda: None)
     rec = tdev.env_record()
@@ -89,10 +100,14 @@ def test_env_record_names_what_is_missing(no_cuda, monkeypatch):
     assert tdev.gpu_missing({"cuda_available": True, "nvcc": "/x"}) is None
 
 
-@pytest.mark.parametrize("kw", [dict(fused=False), dict(lazy_queue_lut=True)])
+@pytest.mark.parametrize("kw", [dict(lazy_queue_lut=True),
+                                dict(lazy_queue_lut=True, fused=False)])
 def test_modes_not_carried_raise(kw):
+    """The lazy queue LUT raises on the fused and the per-slot path alike
+    (the per-slot path itself is carried)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         baton.BatonParams(**kw)
+    assert not baton.BatonParams(fused=False).fused
 
 
 def test_dense_adc_route_is_carried():
@@ -115,14 +130,17 @@ def test_partition_shard_sector_codes_raise():
 
 
 def test_sector_codes_and_kmeans_raise():
+    """Sector codes raise naming their ROADMAP item; ``partitioner="kmeans"``
+    is carried now and builds with the balanced k-means assignment."""
     v = np.random.default_rng(0).normal(size=(80, 8)).astype(np.float32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         baton.build_index(v, p=2, codes_mode="sector", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         BatonEngine(device="cpu").load_index(
             {"part_nbr_codes": np.zeros((1, 1, 1, 1), np.uint8)}, {})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        baton.build_index(v, p=2, partitioner="kmeans", pq_m=4, pq_k=8,
-                          device="cpu",
-                          graph=baton.vamana.build(v, r=4, l_build=8,
-                                                   device="cpu"))
+    idx = baton.build_index(v, p=2, partitioner="kmeans", pq_m=4, pq_k=8,
+                            device="cpu",
+                            graph=baton.vamana.build(v, r=4, l_build=8,
+                                                     device="cpu"))
+    np.testing.assert_array_equal(
+        idx.assign, baton.part_mod.balanced_kmeans(v, 2, seed=0))
