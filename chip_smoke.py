@@ -74,7 +74,28 @@ Phases (any failure exits non-zero; nothing is swallowed):
     ``modeled_qps``, ``modeled_latency_s``, ``bottleneck`` and the card's
     wall seconds and QPS; then the SG/baton ratios of reads and
     dist_comps and the ratio of baton's modeled QPS to the baseline's
-    (findings, not requirements).
+    (findings, not requirements);
+12. the discrete-event cluster simulator over phase 11's traces (P = 8
+    servers): ``cluster.find_saturation_qps`` for each engine (800-arrival
+    probes); ``Deployment.run`` at 0.7 x that saturation for both engines,
+    answers bitwise equal to phase 11's, ``offered == completed``,
+    ``lost == 0`` and exactly ``SIM_FIELDS`` in ``Report.sim``;
+    ``cluster.latency_vs_rate`` at 0.1, 0.5 and 0.9 of saturation (5000
+    arrivals: mean, p50, p99, achieved QPS); baton's saturation with its
+    P = 8 partitions folded onto 2, 4 and 8 servers (``Placement.fold``,
+    not rebuilt indexes); one baton ``Deployment.run`` per scenario branch
+    (warm cache, ``replicas="hot:2"``, a straggler, an elastic schedule, a
+    crash with retries), each conserving its arrivals; the ratio of
+    baton's saturation to the baseline's.  Every number of this phase is
+    modeled: ``io_sim/disk.py``'s model of the paper's CPU/SSD cluster
+    replaying traces counted on the card, not a time of the card;
+13. persistence: ``Deployment.save`` of phase 4's baton index and phase
+    11's baseline index into a directory under ``build/``, then
+    ``Deployment.load(..., device="cuda")`` (no engine may build); batch 1
+    on the kernel route from each loaded index is bitwise equal to phase
+    5's and phase 11's answers (ids, dists, five counters); prints the
+    bytes written and the seconds to save and to load, then removes the
+    directory.
 
 Kernel launch counts are set to 0 just before each path runs and read just
 after: the slot ADC and the top-k on phase 5, the dense ADC and the LUT
@@ -560,7 +581,8 @@ def compare_phase(torch, eng, ds, spec, kernel_sp, batches, gt1, kern,
                   n_q: int, n: int) -> dict:
     """Phase 11: batch 1 through ``Deployment.run`` on the baton engine, the
     scatter-gather baseline (built over ``eng``'s graph and partitioning)
-    and the exact oracle, on ``eng``'s device; returns the reports."""
+    and the exact oracle, on ``eng``'s device; returns the baton config,
+    the baseline's engine and the reports."""
     from repro_torch import kernels
     from repro_torch.api.deployment import Deployment
     from repro_torch.api.engine import ExactEngine, ScatterGatherEngine
@@ -638,7 +660,168 @@ def compare_phase(torch, eng, ds, spec, kernel_sp, batches, gt1, kern,
         f"{g.counters['dist_comps'] / b.counters['dist_comps']:.3f}; "
         f"baton/SG modeled_qps {b.modeled_qps / g.modeled_qps:.3f}, card "
         f"wall QPS {g.wall_s / b.wall_s:.3f}")
-    return reports
+    return cfg, sg, reports
+
+
+def sim_phase(cfg, engines: dict, ds, queries, gt1, reports) -> None:
+    """Phase 12: the event simulator over phase 11's traces (batch 1 at
+    P = 8) of the baton engine and the scatter-gather baseline."""
+    from repro_torch import cluster
+    from repro_torch.api.deployment import SIM_FIELDS, Deployment
+
+    t_phase = time.perf_counter()
+    log("[sim] every number of this phase is modeled: io_sim/disk.py's "
+        "model of the paper's CPU/SSD cluster replaying the per-query traces "
+        "counted on the card (phase 11), not a time of the card")
+    sat = {}
+    for name, eng in engines.items():
+        n_srv = eng.index.p
+        dep_cfg = cfg.with_updates(index={"engine": name})
+        traces = Deployment.from_parts(dep_cfg, eng, ds).cluster_traces(
+            reports[name].stats)
+        t0 = time.perf_counter()
+        sat[name] = cluster.find_saturation_qps(traces, n_srv,
+                                                n_arrivals=800, seed=0)
+        t_sat = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        run_cfg = dep_cfg.with_updates(sim={"send_rate": 0.7 * sat[name]})
+        rep = Deployment.from_parts(run_cfg, eng, ds).run(queries, gt1)
+        t_run = time.perf_counter() - t0
+        want = reports[name]
+        if not (rep.ids.tobytes() == want.ids.tobytes()
+                and rep.dists.tobytes() == want.dists.tobytes()):
+            raise AssertionError(f"{name}: Deployment.run with the simulator "
+                                 f"answers differently from phase 11")
+        s = rep.sim
+        if tuple(s) != SIM_FIELDS:
+            raise AssertionError(f"{name}: Report.sim keys {tuple(s)}")
+        if not (s["offered"] == s["completed"] and s["lost"] == 0):
+            raise AssertionError(f"{name}: offered {s['offered']}, completed "
+                                 f"{s['completed']}, lost {s['lost']}")
+        if s["saturation_qps"] != sat[name]:
+            raise AssertionError(f"{name}: Report.sim's saturation "
+                                 f"{s['saturation_qps']} != {sat[name]}")
+        log(f"[sim] {name}: {len(traces)} traces on {n_srv} servers, "
+            f"saturation {sat[name]:.1f} QPS (modeled; search {t_sat:.1f} s "
+            f"of host); Deployment.run at 0.7 x = {s['rate_qps']:.1f} QPS: "
+            f"{s['completed']}/{s['offered']} completed, lost {s['lost']}, "
+            f"mean {s['mean_s'] * 1e3:.3f} ms p50 {s['p50_s'] * 1e3:.3f} p95 "
+            f"{s['p95_s'] * 1e3:.3f} p99 {s['p99_s'] * 1e3:.3f} ms (modeled); "
+            f"answers bitwise equal to phase 11; run {t_run:.1f} s of host "
+            f"(card search included)")
+        t0 = time.perf_counter()
+        sweep = cluster.latency_vs_rate(traces, n_srv, sat[name],
+                                        (0.1, 0.5, 0.9), n_arrivals=5000,
+                                        seed=1)
+        for frac, r in sweep.items():
+            if r.completed != r.offered:
+                raise AssertionError(f"{name} at {frac}: lost arrivals")
+            log(f"[sim] {name} at {frac} x saturation = "
+                f"{frac * sat[name]:.1f} QPS: mean {r.mean_s * 1e3:.3f} ms, "
+                f"p50 {r.p50_s * 1e3:.3f}, p99 {r.p99_s * 1e3:.3f} ms, "
+                f"achieved {r.throughput_qps:.1f} QPS (modeled, 5000 "
+                f"arrivals)")
+        log(f"[sim] {name} sweep: {time.perf_counter() - t0:.1f} s of host")
+        if name == "baton":
+            t0 = time.perf_counter()
+            folded = {}
+            for n in (2, 4, 8):
+                folded[n] = cluster.find_saturation_qps(
+                    traces, n, cluster.SimParams(
+                        placement=cluster.Placement.fold(n_srv, n)),
+                    n_arrivals=800, seed=0)
+            log(f"[sim] baton saturation with its {n_srv} partitions folded "
+                f"onto 2, 4, 8 servers (Placement.fold; the same P = "
+                f"{n_srv} traces, not rebuilt indexes): "
+                + ", ".join(f"{n}: {v:.1f}" for n, v in folded.items())
+                + f" QPS (modeled); 8/2 = {folded[8] / folded[2]:.3f} "
+                f"(linear 4); {time.perf_counter() - t0:.1f} s of host")
+            span = 2000 / (0.7 * sat[name])     # sim.n_arrivals' arrivals
+            scenarios = {
+                "warm cache": {"cache_sectors": 8192, "warm_cache": True},
+                "hot replicas": {"replicas": "hot:2", "arrival": "skew"},
+                "straggler": {"straggler": "0:4.0"},
+                "elastic": {"elastic": f"0:4,{0.5 * span:.6f}:8"},
+                "crash": {"faults": f"{0.3 * span:.6f}:crash:1,"
+                                    f"{0.6 * span:.6f}:recover:1",
+                          "replicas": "2", "retry": 2},
+            }
+            for tag, kw in scenarios.items():
+                t0 = time.perf_counter()
+                s = Deployment.from_parts(
+                    run_cfg.with_updates(sim=kw), eng, ds).run(
+                        queries, gt1).sim
+                if s["offered"] != s["completed"] + s["lost"]:
+                    raise AssertionError(f"{tag}: offered {s['offered']} != "
+                                         f"completed {s['completed']} + lost "
+                                         f"{s['lost']}")
+                log(f"[sim] baton {tag} ({s['scenario']}): "
+                    f"{s['completed']}/{s['offered']} completed, lost "
+                    f"{s['lost']}, reissued {s['reissued']}, rehome_events "
+                    f"{s['rehome_events']}, migration_bytes "
+                    f"{s['migration_bytes']:.0f}, cache_hit_rate "
+                    f"{s['cache_hit_rate']:.4f}, saturation "
+                    f"{s['saturation_qps']:.1f} QPS, mean "
+                    f"{s['mean_s'] * 1e3:.3f} ms p99 {s['p99_s'] * 1e3:.3f} "
+                    f"ms (modeled); {time.perf_counter() - t0:.1f} s of host")
+    log(f"[sim] baton/SG saturation {sat['baton'] / sat['scatter_gather']:.3f}"
+        f" (modeled); phase 12 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def persistence_phase(cfg, engines: dict, queries, answers) -> None:
+    """Phase 13: save each engine's index, load it back onto the engine's
+    device without a build, and hold batch 1's answers bitwise."""
+    import shutil
+    import tempfile
+
+    from repro_torch.api import engine as engine_mod
+    from repro_torch.api.deployment import Deployment
+    from repro_torch.device import synchronize
+
+    def refuse(self, *a, **kw):
+        raise AssertionError("Deployment.load built an index")
+
+    build_dir = os.path.join(ROOT, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    root = tempfile.mkdtemp(dir=build_dir, prefix="ckpt_smoke_")
+    try:
+        for name, eng in engines.items():
+            d = os.path.join(root, name)
+            dep = Deployment.from_parts(
+                cfg.with_updates(index={"engine": name}), eng)
+            t0 = time.perf_counter()
+            dep.save(d)
+            t_save = time.perf_counter() - t0
+            n_bytes = sum(os.path.getsize(os.path.join(dp, f))
+                          for dp, _, fs in os.walk(d) for f in fs)
+            builds = {c: c.build for c in engine_mod.ENGINES.values()}
+            for c in builds:
+                c.build = refuse
+            try:
+                t0 = time.perf_counter()
+                loaded = Deployment.load(d, device=eng.device)
+                synchronize(eng.device)
+                t_load = time.perf_counter() - t0
+            finally:
+                for c, b in builds.items():
+                    c.build = b
+            if loaded.config != dep.config or \
+                    loaded.engine.device != eng.device:
+                raise AssertionError(f"{name}: loaded config or device "
+                                     f"differs")
+            res = loaded.search(queries)
+            if not same_answers(res, answers[name]):
+                raise AssertionError(f"{name}: the loaded index answers "
+                                     f"differently")
+            log(f"[ckpt] {name}: saved {n_bytes} bytes in {t_save:.2f} s, "
+                f"loaded onto {eng.device} in {t_load:.2f} s (no build); "
+                f"batch 1 "
+                f"on the kernel route bitwise equal (ids, dists, five "
+                f"counters) to phase {5 if name == 'baton' else 11}; "
+                f"search {res.wall_s:.3f} s")
+            del loaded, res
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def main(argv=None) -> int:
@@ -875,8 +1058,19 @@ def main(argv=None) -> int:
     # --- 10. the per-slot engine path ------------------------------------------
     per_slot_phase(eng, batches[1], plain, launches)
     # --- 11. the paper's comparison through Deployment.run ----------------------
-    compare_phase(torch, eng, ds, spec, kernel_sp, batches,
-                  gt[args.queries:2 * args.queries], kern, n_q, args.n)
+    gt1 = gt[args.queries:2 * args.queries]
+    cfg, sg, reports = compare_phase(torch, eng, ds, spec, kernel_sp, batches,
+                                     gt1, kern, n_q, args.n)
+    engines = {"baton": eng, "scatter_gather": sg}
+    # --- 12. the event simulator over phase 11's traces ----------------------
+    sim_phase(cfg, engines, ds, batches[1], gt1, reports)
+    # --- 13. persistence: save, load on the card, answer bitwise -------------
+    t0 = time.perf_counter()
+    persistence_phase(cfg, engines, batches[1],
+                      {"baton": kern, "scatter_gather":
+                       reports["scatter_gather"]})
+    torch.cuda.empty_cache()
+    log(f"[ckpt] phase 13 took {time.perf_counter() - t0:.1f} s")
 
     if args.profile:
         profile_batch(torch, eng, batches[1], kernel_sp, args.profile)

@@ -1,45 +1,48 @@
-"""The ``Deployment`` facade: index + params + cost model, composed.
+"""The ``Deployment`` facade: index + params + cost model + cluster scenario.
 
 Counterpart of ``repro/api/deployment.py``.
 ``Deployment.from_config(ServeConfig(...)).run(queries)`` is the pipeline
 every entry point routes through: it owns the dataset, the engine (and its
-index) and the calibrated ``CostModel``, and returns a structured
-:class:`Report` — recall, the paper's per-query counters, envelope bytes,
-closed-form modeled QPS / latency / bottleneck, and the wall time of the
-search on the device.  Swapping engines is a one-line config change
+index), the calibrated ``CostModel`` and the discrete-event cluster
+simulator's scenario, and returns a structured :class:`Report` — recall,
+the paper's per-query counters, envelope bytes, closed-form modeled QPS /
+latency / bottleneck, the wall time of the search on the device, and (when
+``sim.send_rate > 0``) the simulated latencies under load.  The modeled and
+simulated numbers price the paper's CPU/SSD cluster (``io_sim/disk.py``)
+from the events the search counted; they are not times of the device.
+Swapping engines is a one-line config change
 (``index.engine = baton | scatter_gather | exact``).
 
-Not ported yet (ROADMAP queue 1): the discrete-event cluster simulator that
-fills ``Report.sim`` when ``sim.send_rate > 0`` (``run`` refuses such a
-config before searching), and index persistence (``save``/``load``,
-``from_config(index_cache=...)``).
+Index builds are cacheable: :meth:`Deployment.save` / :meth:`Deployment.load`
+persist the engine's index through ``checkpoint/ckpt.py`` (atomic commit, the
+reference's format), keyed by ``ServeConfig.index_key()`` — the hash of the
+dataset+index sections, so a config change that affects the build
+invalidates the cache.  A saved index reads in either package.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+import re
 
 import numpy as np
 
+from repro_torch import cluster
 from repro_torch.api.engine import SearchResult, get_engine
-from repro_torch.cluster import make_workload
-from repro_torch.configs.batann_serve import ServeConfig
+from repro_torch.checkpoint import ckpt
+from repro_torch.configs.batann_serve import (
+    ServeConfig, parse_elastic, parse_faults, parse_straggler,
+)
 from repro_torch.core import ref
 from repro_torch.data import synth
+from repro_torch.ft import elastic as ft_elastic
 from repro_torch.io_sim.disk import DEFAULT as COST, CostModel
 from repro_torch.serve_async import AsyncServingTier
 
-SIM_NOT_PORTED = (
-    "sim.send_rate > 0 needs the discrete-event cluster simulator, which is "
-    "not ported yet (ROADMAP queue 1 item 11); set sim.send_rate = 0")
-INDEX_CACHE_NOT_PORTED = (
-    "index_cache (Deployment.save/load) needs checkpointing, which is not "
-    "ported yet (ROADMAP queue 1 item 12)")
-
 # Report.to_dict() key schema, the reference's (same order; grow-only:
 # removing or renaming a field is an API break for downstream consumers).
-# SIM_FIELDS is the simulator block's schema, declared here although the
-# simulator is not ported yet, so both packages pin one schema.
 REPORT_FIELDS = (
     "config", "engine", "n_queries", "k", "recall", "counters",
     "envelope_bytes", "modeled_qps", "modeled_latency_s", "bottleneck",
@@ -155,9 +158,27 @@ class Report:
         return ";".join(parts)
 
 
+def _straggler_multipliers(spec: str, n_servers: int):
+    """'0:4.0,2:1.5' -> per-server read multipliers tuple (or None).
+
+    Format/range were validated at ServeConfig construction against the
+    *largest* tier the config can reach; an elastic scenario also prices
+    smaller tiers (the static saturation run, pre-scale-up epochs), so
+    entries addressing servers beyond ``n_servers`` are ignored here —
+    they only apply at epochs where those servers exist."""
+    pairs = [(srv, m) for srv, m in parse_straggler(spec)
+             if srv < n_servers]
+    if not pairs:
+        return None
+    mult = [1.0] * n_servers
+    for srv, m in pairs:
+        mult[srv] = m
+    return tuple(mult)
+
+
 @dataclasses.dataclass
 class Deployment:
-    """An engine + its index + search params + cost model, composed."""
+    """An engine + its index + search params + cluster scenario, composed."""
 
     config: ServeConfig
     engine: object                      # repro_torch.api.engine.Engine
@@ -171,9 +192,10 @@ class Deployment:
                     dataset: "synth.Dataset | None" = None,
                     device="cuda") -> "Deployment":
         """Build the configured deployment on ``device``: the dataset (with
-        its ground truth) unless one is given, the engine and its index."""
-        if index_cache is not None:
-            raise NotImplementedError(INDEX_CACHE_NOT_PORTED)
+        its ground truth) unless one is given, the engine and its index —
+        or, with ``index_cache``, load the index saved under
+        ``<index_cache>/<config.index_key()>`` (saving it there after a
+        build when there is none yet)."""
         ds = dataset if dataset is not None else synth.make_dataset(
             config.data.name, n=config.data.n,
             n_queries=config.data.n_queries, seed=config.data.seed,
@@ -181,7 +203,15 @@ class Deployment:
         dep = cls(config=config,
                   engine=get_engine(config.index.engine, device=device),
                   dataset=ds)
+        cache_dir = (os.path.join(index_cache, config.index_key())
+                     if index_cache else None)
+        if cache_dir and ckpt.latest_step(cache_dir) is not None:
+            tree, meta = _restore_index(cache_dir)
+            dep.engine.load_index(tree, meta)
+            return dep
         dep.engine.build(ds, config.index)
+        if cache_dir:
+            dep.save(cache_dir)
         return dep
 
     @classmethod
@@ -214,7 +244,8 @@ class Deployment:
 
     # --- the pipeline ------------------------------------------------------
     def run(self, queries=None, gt=None) -> Report:
-        """Search -> recall -> counters -> cost model, in one Report.
+        """Search -> recall -> counters -> cost model -> (optional) cluster
+        simulation, in one Report.
 
         Args:
             queries: (B, dim) float32 query batch; defaults to the
@@ -226,16 +257,21 @@ class Deployment:
         Returns:
             A :class:`Report` — recall, mean per-query counters, envelope
             bytes, closed-form modeled QPS / latency (seconds) /
-            bottleneck, and the search's wall seconds on the device.
-            ``sim`` is ``None``.
+            bottleneck, the search's wall seconds on the device, and (iff
+            ``sim.send_rate > 0``) the simulated ``SIM_FIELDS`` block.
 
         Raises:
-            NotImplementedError: before searching, if the config asks for
-                the event simulator (``sim.send_rate > 0``).
+            ValueError: before searching, if the config asks for the event
+                simulator but the engine emits no replayable traces
+                (``ExactEngine``).
         """
-        if self.config.sim.send_rate > 0:
+        if (self.config.sim.send_rate > 0
+                and not getattr(self.engine, "has_traces", True)):
             # fail fast — before the (expensive) search, not after it
-            raise NotImplementedError(SIM_NOT_PORTED)
+            raise ValueError(
+                f"engine '{self.engine.name}' emits no cluster traces; "
+                f"set sim.send_rate=0 (drop --send-rate) or pick a "
+                f"trace-emitting engine")
         if queries is None:
             queries = self.dataset.queries
             if gt is None:
@@ -245,6 +281,8 @@ class Deployment:
         recall = (ref.recall_at_k(res.ids, gt, sp.k)
                   if gt is not None else None)
         qps, lat = self.engine.model(res.stats, sp, self.dim)
+        sim = (self._simulate(res.stats)
+               if self.config.sim.send_rate > 0 else None)
         return Report(
             config=self.config.name, engine=self.engine.name,
             n_queries=len(queries), k=sp.k, recall=recall,
@@ -252,9 +290,116 @@ class Deployment:
             envelope_bytes=self.engine.envelope_bytes(self.dim, sp),
             modeled_qps=qps, modeled_latency_s=lat,
             bottleneck=self.engine.bottleneck(res.stats, sp, self.dim),
-            wall_s=res.wall_s, sim=None,
+            wall_s=res.wall_s, sim=sim,
             ids=res.ids, dists=res.dists, stats=res.stats,
         )
+
+    def sim_params(self, placement=None, n_servers: int | None = None):
+        """The cluster-simulator ``SimParams`` of this scenario (static —
+        the elastic schedule, when configured, is layered on by
+        ``_simulate`` so saturation search still prices the static tier).
+
+        Args:
+            placement: load-derived ``cluster.Placement``, required when
+                the config asks for hot-partition replication
+                (``replicas="hot:<b>"``; from ``cluster.hot_placement`` —
+                ``_simulate`` derives it from the workload's arrivals).
+            n_servers: server count the straggler multiplier tuple must
+                cover (defaults to the deployment's ``n_servers``; the
+                elastic path passes the schedule's maximum).
+
+        Returns:
+            ``cluster.SimParams`` with the cache / replication / straggler
+            scenario stages of the config's ``sim`` section.
+        """
+        sim = self.config.sim
+        replicas = 1
+        if placement is None:
+            if str(sim.replicas).startswith("hot"):
+                raise ValueError(
+                    f"replicas={sim.replicas!r} needs a load-derived "
+                    f"placement (cluster.hot_placement); refusing to fall "
+                    f"back to identity placement")
+            replicas = int(sim.replicas)
+        return cluster.SimParams(
+            cache_sectors=sim.cache_sectors, warm_cache=sim.warm_cache,
+            replicas=replicas, placement=placement,
+            read_mult=_straggler_multipliers(
+                sim.straggler, n_servers or self.n_servers),
+        )
+
+    def _simulate(self, stats: dict) -> dict:
+        """The event-simulator block, config-driven.
+
+        Returns the ``Report.sim`` dict (exactly ``SIM_FIELDS`` keys).
+        With ``sim.elastic`` configured, the replay runs under the
+        time-varying ``PlacementSchedule`` (minimal-move rescales chained
+        by ``ft.elastic.elastic_schedule``) with per-copy migration bytes
+        charged over the source NIC; ``saturation_qps`` still refers to
+        the *static* ``index.p``-server tier so the elastic run has a
+        fixed yardstick.
+        """
+        sim = self.config.sim
+        p = self.n_servers
+        traces = self.cluster_traces(stats)
+        homes = cluster.trace_homes(traces)
+        wl = cluster.make_workload(len(traces), sim.send_rate,
+                                   sim.n_arrivals, sim.arrival,
+                                   seed=sim.seed, homes=homes)
+        placement = None
+        if str(sim.replicas).startswith("hot"):
+            budget = int(str(sim.replicas).split(":")[1])
+            placement = cluster.hot_placement(homes, wl.trace_idx, p, budget)
+        params = self.sim_params(placement)
+        sat = cluster.find_saturation_qps(traces, p, params, seed=sim.seed,
+                                          criterion=sim.sat_criterion)
+        part_bytes = partition_bytes(self.engine.index)
+        run_params, n_srv = params, p
+        steps = parse_elastic(sim.elastic)
+        if steps:
+            schedule = ft_elastic.elastic_schedule(steps, n_parts=p)
+            n_srv = schedule.max_server + 1
+            run_params = dataclasses.replace(
+                params, schedule=schedule, migration_bytes=part_bytes,
+                read_mult=_straggler_multipliers(sim.straggler, n_srv))
+        fault_events = parse_faults(sim.faults)
+        if fault_events:
+            # saturation (above) is probed fault-free: the crash is measured
+            # against the healthy tier's knee, not a moving target
+            run_params = dataclasses.replace(
+                params, faults=cluster.FaultSchedule(tuple(fault_events)),
+                max_retries=sim.retry, hedge_s=sim.hedge_ms * 1e-3)
+        res = cluster.simulate(traces, n_srv, wl, run_params)
+        fault_diag = res.diag.get("faults", {})
+        pl = params.resolve_placement(p, p)
+        scenario = (f"cache={sim.cache_sectors}"
+                    f"{'(warm)' if sim.warm_cache else ''} "
+                    f"replicas={sim.replicas} "
+                    f"straggler={sim.straggler or '-'}"
+                    f"{' elastic=' + sim.elastic if sim.elastic else ''}"
+                    f"{' faults=' + sim.faults if sim.faults else ''}")
+        return {
+            "rate_qps": sim.send_rate, "arrival": sim.arrival,
+            "offered": res.offered, "completed": res.completed,
+            "mean_s": res.mean_s, "p50_s": res.p50_s, "p95_s": res.p95_s,
+            "p99_s": res.p99_s, "saturation_qps": sat,
+            "sat_criterion": sim.sat_criterion,
+            "cache_hit_rate": res.cache_hit_rate,
+            "cache_memory_bytes":
+                self.cost.cache_memory_bytes(sim.cache_sectors),
+            "replicas": str(sim.replicas),
+            "replica_memory_bytes": self.cost.replica_memory_bytes(
+                part_bytes, pl.copies_per_partition),
+            "scenario": scenario,
+            "elastic": sim.elastic,
+            "rehome_events": res.diag.get("rehome_events", 0),
+            "migration_bytes": res.diag.get("migration_bytes_total", 0.0),
+            "faults": sim.faults,
+            "reissued": fault_diag.get("reissued", 0),
+            "lost": fault_diag.get("lost", 0),
+            "hedge_wins": fault_diag.get("hedge_wins", 0),
+            "failover_hops": fault_diag.get("failovers", 0),
+        }
 
     # --- the executable tier (serve_async) ---------------------------------
     def run_exec(self, queries=None) -> dict:
@@ -266,6 +411,28 @@ class Deployment:
         return run_exec(self.engine, self.config.exec, self.config.search,
                         queries)
 
+    # --- index persistence (checkpoint/ckpt.py) ----------------------------
+    def save(self, directory: str) -> str:
+        """Persist the engine's index (atomic commit; see ckpt.py)."""
+        tree, meta = self.engine.index_state()
+        return ckpt.save(directory, step=0, tree=tree, extra={
+            "engine": self.engine.name, "meta": meta,
+            "index_key": self.config.index_key(),
+            "config": self.config.to_dict(),
+        })
+
+    @classmethod
+    def load(cls, directory: str, config: "ServeConfig | None" = None,
+             dataset: "synth.Dataset | None" = None,
+             device="cuda") -> "Deployment":
+        """Rebuild a Deployment on ``device`` from a saved index (either
+        package's).  ``config`` defaults to the one stored alongside it."""
+        tree, extra = _restore_index(directory, with_extra=True)
+        cfg = config or ServeConfig.from_dict(extra["config"])
+        eng = get_engine(extra["engine"], device=device)
+        eng.load_index(tree, extra["meta"])
+        return cls(config=cfg, engine=eng, dataset=dataset)
+
 
 def partition_bytes(index) -> float:
     """Per-partition storage footprint (f32 vectors + int32 neighbour ids) —
@@ -273,6 +440,33 @@ def partition_bytes(index) -> float:
     nbr = getattr(index, "part_neighbors", None)
     return (index.n / index.p) * (
         index.dim * 4 + (nbr.shape[-1] * 4 if nbr is not None else 0))
+
+
+# ckpt stores flat-dict trees; keystr renders each key as "['name']"
+_DICT_KEY_RE = re.compile(r"\['(.+)'\]")
+
+
+def _restore_index(directory: str, with_extra: bool = False):
+    """Restore a ckpt-saved index tree without knowing its leaves upfront:
+    the manifest lists every array's path/shape/dtype, so the ``tree_like``
+    that ``ckpt.restore`` wants is reconstructible from the manifest alone.
+    """
+    step = ckpt.latest_step(directory)
+    if step is None:
+        raise FileNotFoundError(f"no committed index checkpoint in {directory}")
+    with open(os.path.join(directory, f"step_{step}", "manifest.json")) as f:
+        manifest = json.load(f)
+    tree_like = {}
+    for meta in manifest["arrays"]:
+        m = _DICT_KEY_RE.fullmatch(meta["path"])
+        if m is None:
+            raise ValueError(f"unexpected ckpt leaf path: {meta['path']}")
+        tree_like[m.group(1)] = np.empty(meta["shape"],
+                                         np.dtype(meta["dtype"]))
+    tree, _, extra = ckpt.restore(directory, tree_like, step=step)
+    if with_extra:
+        return tree, extra
+    return tree, extra["meta"]
 
 
 def run_exec(engine, exec_spec, search_params, queries) -> dict:
@@ -307,8 +501,9 @@ def run_exec(engine, exec_spec, search_params, queries) -> dict:
         batch=ex.batch)
     try:
         if ex.send_rate > 0:
-            wl = make_workload(len(queries), ex.send_rate, ex.n_arrivals,
-                               ex.arrival, seed=ex.seed)
+            wl = cluster.make_workload(len(queries), ex.send_rate,
+                                       ex.n_arrivals, ex.arrival,
+                                       seed=ex.seed)
             res = tier.serve(queries, wl, time_scale=ex.time_scale)
         else:
             res = tier.search(queries)

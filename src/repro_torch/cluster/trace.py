@@ -6,8 +6,7 @@ contiguous residency on a server, counters exact per segment), the
 scatter-gather baseline as per-partition branch counters.  The simulator
 replays these through queueing-aware resources, so throughput/latency under
 load derive from *measured* work, not formulas.  Counterpart of
-``repro/cluster/trace.py``, copied; the port's simulator that replays them
-is not ported yet (ROADMAP queue 1).
+``repro/cluster/trace.py``, copied; ``cluster.sim`` replays them.
 
 Counted quantities are exact per segment; within a segment the simulator
 spreads reads/comparisons evenly across the segment's hops (the engine's

@@ -5,14 +5,16 @@ A copy of the data/index/search/sim/exec sections of
 validation (the sim section's parsers included), so a config written for
 one package describes the same deployment in the other.
 ``SearchParams.lut_impl`` is the port's own (the LUT-kernel switch, off by
-default).  The sim section is validated here, but the event simulator that
-reads it is not ported yet: ``Deployment.run`` refuses ``send_rate > 0``
-(ROADMAP queue 1).  The mutation section waits for queue 1 item 7.
+default).  The mutation section waits for ROADMAP queue 1 item 7:
+``ServeConfig.from_dict`` accepts a reference dict's ``mutate`` section only
+at its default values.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
 
 
 @dataclasses.dataclass(frozen=True)
@@ -316,7 +318,18 @@ def parse_faults(spec: str) -> list[tuple[float, str, int]]:
     return out
 
 
-_SECTIONS = ("data", "index", "search", "sim", "exec")
+_SECTIONS = {"data": DataSpec, "index": IndexSpec, "search": SearchParams,
+             "sim": SimSpec, "exec": ExecSpec}
+# The reference's mutation section at its defaults (mutation off): the only
+# value of it this package accepts until mutation is ported
+_MUTATE_DEFAULTS = {
+    "insert_frac": 0.0, "delete_frac": 0.0, "consolidate": True,
+    "l_insert": 0, "ingest_rate": 0.0, "ingest_bytes": 4096,
+    "ingest_sectors": 1, "recall_tol": 0.05, "seed": 0,
+}
+MUTATE_NOT_PORTED = (
+    "a mutate section with non-default values needs live mutation, which is "
+    "not ported yet (ROADMAP queue 1 item 7)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -369,6 +382,52 @@ class ServeConfig:
             out = dataclasses.replace(
                 out, **{sec: dataclasses.replace(getattr(out, sec), **updates)})
         return out
+
+    # --- JSON round trip ---------------------------------------------------
+    def to_dict(self) -> dict:
+        """The config as nested dicts.  The search section carries
+        ``lut_impl``, which the reference's ``SearchParams`` lacks, so this
+        dict does not load into the reference's ``from_dict`` (give the
+        reference its own config where it loads a port checkpoint)."""
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "ServeConfig":
+        """Inverse of :meth:`to_dict`; also reads the reference's dicts.
+        Their ``mutate`` section is accepted only at its default values: a
+        non-default one raises ``NotImplementedError`` (never dropped)."""
+        mutate = d.get("mutate", {})
+        unknown = sorted(set(mutate) - set(_MUTATE_DEFAULTS))
+        if unknown:
+            raise TypeError(f"unknown mutate fields: {unknown}")
+        if any(v != _MUTATE_DEFAULTS[k] for k, v in mutate.items()):
+            raise NotImplementedError(MUTATE_NOT_PORTED)
+        kw = {"name": d.get("name", "batann-serve")}
+        for sec, typ in _SECTIONS.items():
+            kw[sec] = typ(**d.get(sec, {}))
+        return cls(**kw)
+
+    def to_json(self, indent: int | None = None) -> str:
+        return json.dumps(self.to_dict(), indent=indent, sort_keys=True)
+
+    @classmethod
+    def from_json(cls, s: str) -> "ServeConfig":
+        return cls.from_dict(json.loads(s))
+
+    # --- index-cache key ---------------------------------------------------
+    def index_key(self) -> str:
+        """Stable hash of the fields that determine the built index
+        (dataset + index sections) — the key of ``Deployment`` save/load
+        caching, equal to the reference's for the same sections.
+        ``n_queries`` is excluded: the query batch rides beside the index,
+        so changing it must not invalidate the cache."""
+        data = dataclasses.asdict(self.data)
+        data.pop("n_queries")
+        payload = json.dumps(
+            {"data": data, "index": dataclasses.asdict(self.index)},
+            sort_keys=True,
+        )
+        return hashlib.sha256(payload.encode()).hexdigest()[:16]
 
 
 # Named presets, the reference's

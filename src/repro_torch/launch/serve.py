@@ -6,18 +6,24 @@
         --config batann-serve-smoke --engine scatter_gather
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --n 2000 \\
         --servers 4 --queries 32 --exec-workers 2 --exec-batch 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --config batann-serve-smoke --send-rate 200 --index-cache build/idx
 
 Config-driven, as the reference's launcher: ``--config <name>`` picks a
 ``ServeConfig`` preset and every other flag overrides a field of it.  The
 pipeline — dataset, index, search, cost model — is
 ``api.deployment.Deployment`` on ``--device`` (default ``cuda``; ``cpu``
 runs the plain PyTorch path).  ``--engine`` swaps the engine in one flag:
-the baton engine, the scatter-gather baseline or the exact oracle.  Prints
-the reference's lines (index built; recall and counters; modeled QPS,
-latency and bottleneck), the search's wall time and QPS on the device, then
-one JSON line of the same numbers.  With ``--exec-workers N`` it then
-serves the same queries through the executable tier (closed loop, or open
-loop at ``--exec-rate``) and prints that JSON dict as another line.
+the baton engine, the scatter-gather baseline or the exact oracle.
+``--index-cache DIR`` loads the index saved under DIR for the config's
+dataset+index sections (``ServeConfig.index_key``), or builds it and saves
+it there.  Prints the reference's lines (index built; recall and counters;
+modeled QPS, latency and bottleneck; with ``--send-rate`` the event
+simulator's block: latencies under load on the modeled cluster), the
+search's wall time and QPS on the device, then one JSON line of the same
+numbers.  With ``--exec-workers N`` it then serves the same queries through
+the executable tier (closed loop, or open loop at ``--exec-rate``) and
+prints that JSON dict as another line.
 """
 
 from __future__ import annotations
@@ -36,6 +42,10 @@ def build_argparser() -> argparse.ArgumentParser:
                     choices=sorted(SERVE_CONFIGS),
                     help="ServeConfig preset to start from; every other "
                          "flag overrides a config field")
+    ap.add_argument("--index-cache", default=None, metavar="DIR",
+                    help="load a cached index from DIR (keyed by the "
+                         "config's dataset+index sections) or build and "
+                         "save one there")
     ap.add_argument("--engine", default=None,
                     choices=["baton", "scatter_gather", "exact"],
                     help="one-line engine swap: the baton engine (default), "
@@ -55,6 +65,55 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--merge-impl", default=None,
                     choices=["lexsort", "bitonic"])
     ap.add_argument("--lut-impl", default=None, choices=["einsum", "kernel"])
+    ap.add_argument("--send-rate", type=float, default=None,
+                    help="open-loop send rate (QPS) for the discrete-event "
+                         "cluster simulator: replays the measured per-query "
+                         "traces through per-server SSD/CPU/slot/NIC queues "
+                         "and reports p50/p99 under load (0 = skip)")
+    ap.add_argument("--arrival", default=None,
+                    choices=["poisson", "burst", "skew", "diurnal"],
+                    help="arrival process for --send-rate / --exec-rate")
+    ap.add_argument("--sim-arrivals", type=int, default=None,
+                    help="queries to simulate at --send-rate")
+    ap.add_argument("--cache-sectors", type=int, default=None,
+                    help="per-server LRU sector-cache capacity for the "
+                         "event simulator (0 = no cache tier)")
+    ap.add_argument("--warm-cache", default=None,
+                    action=argparse.BooleanOptionalAction,
+                    help="pre-touch every trace's sector footprint before "
+                         "the simulated run")
+    ap.add_argument("--replicas", default=None,
+                    help="replica copies per partition: an int (ring "
+                         "placement, least-loaded pick at slot-acquire "
+                         "time) or 'hot:<budget>' to replicate only the "
+                         "hottest partitions under an extra-copy budget")
+    ap.add_argument("--straggler", default=None,
+                    help="per-server SSD service-time multipliers, e.g. "
+                         "'0:4.0,2:1.5' slows server 0 by 4x and 2 by 1.5x")
+    ap.add_argument("--sat-criterion", default=None,
+                    choices=["latency", "backlog", "both"],
+                    help="saturation-knee criterion for the reported "
+                         "saturation QPS (backlog = horizon-independent "
+                         "queue-depth trend)")
+    ap.add_argument("--elastic", default=None, metavar="t0:n0,t1:n1",
+                    help="elastic placement schedule for the event "
+                         "simulator: at time t (seconds) the serving tier "
+                         "scales to n servers, e.g. '0:4,0.5:8'; moved "
+                         "partitions are re-homed (bytes streamed over the "
+                         "source NIC, dual-homed until the copy lands)")
+    ap.add_argument("--faults", default=None, metavar="t:event:server,..",
+                    help="fault schedule for the event simulator: "
+                         "'0.2:crash:1,0.4:recover:1' crashes server 1 at "
+                         "t=0.2s (clients re-issue around failed replicas) "
+                         "and recovers it at t=0.4s; events: crash, "
+                         "recover, slow:<mult>, flaky_nic:<p>")
+    ap.add_argument("--retry", type=int, default=None,
+                    help="client re-issues per query under faults "
+                         "(deadline-triggered, exponential backoff)")
+    ap.add_argument("--hedge-ms", type=float, default=None,
+                    help="issue one hedged duplicate for queries still "
+                         "unresolved after this many ms (first result "
+                         "wins; needs --faults)")
     ap.add_argument("--exec-workers", type=int, default=None,
                     help="also serve the queries on this many executable-"
                          "tier worker threads (run_exec)")
@@ -77,9 +136,45 @@ def config_from_args(args):
         search={"L": args.L, "W": args.W, "k": args.k,
                 "adc_impl": args.adc_impl, "merge_impl": args.merge_impl,
                 "lut_impl": args.lut_impl},
+        sim={"send_rate": args.send_rate, "arrival": args.arrival,
+             "n_arrivals": args.sim_arrivals,
+             "cache_sectors": args.cache_sectors,
+             "warm_cache": args.warm_cache, "replicas": args.replicas,
+             "straggler": args.straggler,
+             "sat_criterion": args.sat_criterion, "elastic": args.elastic,
+             "faults": args.faults, "retry": args.retry,
+             "hedge_ms": args.hedge_ms},
         exec={"workers": args.exec_workers, "send_rate": args.exec_rate,
-              "n_arrivals": args.exec_arrivals, "batch": args.exec_batch},
+              "arrival": args.arrival, "n_arrivals": args.exec_arrivals,
+              "batch": args.exec_batch},
     )
+
+
+def print_sim(cfg, s: dict) -> None:
+    """The simulator block as the reference's launcher prints it."""
+    print(f"  simulated @{s['rate_qps']:.0f} qps ({s['arrival']}, "
+          f"{s['completed']}/{s['offered']} completed, "
+          f"{s['scenario']}): "
+          f"mean={s['mean_s']*1e3:.2f}ms p50={s['p50_s']*1e3:.2f}ms "
+          f"p95={s['p95_s']*1e3:.2f}ms p99={s['p99_s']*1e3:.2f}ms "
+          f"(saturation~{s['saturation_qps']:.0f} qps, "
+          f"{s['sat_criterion']})")
+    if cfg.sim.cache_sectors > 0:
+        print(f"  cache: hit_rate={s['cache_hit_rate']:.3f} "
+              f"dram={s['cache_memory_bytes']/1e6:.1f}MB")
+    if s["replica_memory_bytes"] > 0:
+        print(f"  replicas: {s['replicas']} "
+              f"extra_storage={s['replica_memory_bytes']/1e6:.1f}MB"
+              f"/partition-set")
+    if s["elastic"]:
+        print(f"  elastic: {s['elastic']} "
+              f"rehomed={s['rehome_events']} partitions "
+              f"migrated={s['migration_bytes']/1e6:.1f}MB over NIC")
+    if s["faults"]:
+        print(f"  faults: {s['faults']} "
+              f"lost={s['lost']} reissued={s['reissued']} "
+              f"failover_hops={s['failover_hops']} "
+              f"hedge_wins={s['hedge_wins']}")
 
 
 def main(argv=None) -> dict:
@@ -91,7 +186,8 @@ def main(argv=None) -> dict:
         ap.error(str(e))              # not a traceback after the build
 
     t0 = time.perf_counter()
-    dep = Deployment.from_config(cfg, device=args.device)
+    dep = Deployment.from_config(cfg, index_cache=args.index_cache,
+                                 device=args.device)
     print(f"[serve] index built in {time.perf_counter() - t0:.1f}s "
           f"({cfg.data.n} pts, {dep.n_servers} servers, "
           f"{cfg.index.codes_mode} codes)")
@@ -106,6 +202,8 @@ def main(argv=None) -> dict:
     print(f"  modeled: QPS={rep.modeled_qps:.0f} "
           f"latency={rep.modeled_latency_s * 1e3:.2f}ms "
           f"bottleneck={rep.bottleneck}")
+    if rep.sim is not None:
+        print_sim(cfg, rep.sim)
     print(f"  {dep.engine.device}: wall={rep.wall_s:.3f}s "
           f"QPS={n_q / rep.wall_s:.1f}")
     st = rep.stats
@@ -122,6 +220,8 @@ def main(argv=None) -> dict:
                                     "host_syncs") if key in st},
         "device": str(dep.engine.device),
     }
+    if rep.sim is not None:
+        report["sim"] = rep.sim
     print(json.dumps(report))
     if cfg.exec.workers > 0:
         report["exec"] = dep.run_exec()

@@ -236,19 +236,24 @@ def test_get_engine_works_as_the_reference():
 
 
 def test_run_refuses_the_simulator_before_searching(port_deps):
+    """An engine without traces is refused before it searches, as the
+    reference refuses it; one with traces is searched."""
     class Spy:
-        name, has_traces, searched = "baton", True, False
+        name, has_traces, searched = "exact", False, False
 
         def search(self, *a):
             Spy.searched = True
+            raise RuntimeError("searched")
 
     cfg = port_deps["baton"].config.with_updates(sim={"send_rate": 100.0})
     dep = tdep.Deployment.from_parts(cfg, Spy())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="emits no cluster traces"):
         dep.run(np.zeros((2, 96), np.float32))
     assert not Spy.searched
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdep.Deployment.from_config(cfg, index_cache="x", device="cpu")
+    Spy.has_traces = True
+    with pytest.raises(RuntimeError, match="searched"):
+        dep.run(np.zeros((2, 96), np.float32))
+    assert Spy.searched
 
 
 def test_deployment_accessors(port_deps, ref_deps):
