@@ -55,7 +55,7 @@ Phases (any failure exits non-zero; nothing is swallowed):
    syncs and kernel launches; then its first 256 queries with the einsum
    LUT against phase 5, whose parity is printed (a finding, not a
    requirement);
-9. the executable tier, open loop: 512 Poisson arrivals at half the
+9. the executable tier, open loop: 256 Poisson arrivals at half the
    closed-loop throughput; requires ``offered == completed + rejected`` and
    parity on the completed ones; prints the same fields;
 10. the per-slot engine path: batch 1 with ``fused=False`` (two-pass
@@ -95,7 +95,31 @@ Phases (any failure exits non-zero; nothing is swallowed):
     on the kernel route from each loaded index is bitwise equal to phase
     5's and phase 11's answers (ids, dists, five counters); prints the
     bytes written and the seconds to save and to load, then removes the
-    directory.
+    directory;
+14. the lazy queue LUT: batch 1 through ``BatonEngine.search`` with
+    ``lazy_queue_lut=True`` on ``mxu_tiled``/``bitonic``/``lut_impl=
+    "kernel"``, bitwise equal (ids, dists, five counters, traces) to the
+    same batch with the resident LUT; the LUT kernel's launches of both
+    runs (the lazy run's must be > 0) and the queue LUT bytes of both;
+    then the einsum LUT, lazy, against phase 5: its differing ids are a
+    finding (cuBLAS may pick its route by the batch's shape);
+15. the sector layout (AiSAQ): ``build(..., codes_mode="sector")`` over
+    phase 4's graph and assignment, whose codes and codebook must equal
+    phase 4's; batch 1 on the kernel route bitwise equal to phase 5's and
+    on the dense route (``mxu``, LUT kernel) to phase 7's (ids, dists,
+    five counters, traces); the bytes of ``part_nbr_codes`` against the
+    replicated codes; ``Deployment.save``/``load`` of the sector index,
+    answering bitwise after the load;
+16. live mutation: ``Deployment.run_mutating`` over phase 4's engine with
+    the fig22 mix (insert 0.10, delete 0.05, consolidate, l_insert 64,
+    ingest 500 writes/s, recall_tol 0.10, seed 0, ``sim.send_rate`` 2000)
+    on the kernel route over phase 4's dataset, its searches and ground
+    truth over batch 1:
+    ``parity`` true, no deleted id returned, ``n_live == n_base +
+    n_inserted - n_deleted``, ``mut_recall >= rebuilt_recall - 0.10``,
+    ingest conserved, exactly ``MUTATE_FIELDS``, and the slot-ADC and
+    top-k kernels launched in the mutated search; prints every field and
+    each stage's seconds.
 
 Kernel launch counts are set to 0 just before each path runs and read just
 after: the slot ADC and the top-k on phase 5, the dense ADC and the LUT
@@ -110,6 +134,7 @@ no CUDA device is visible or the ``repro_torch`` package is not beside it.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -824,6 +849,195 @@ def persistence_phase(cfg, engines: dict, queries, answers) -> None:
         shutil.rmtree(root, ignore_errors=True)
 
 
+def same_traces(a, b) -> bool:
+    """Bitwise equal traces and super-step counts of two engine results."""
+    return (np.array_equal(a.stats["trace"], b.stats["trace"])
+            and a.stats["n_supersteps"] == b.stats["n_supersteps"])
+
+
+def lazy_phase(eng, queries, tiled_lut_sp, kern) -> None:
+    """Phase 14: the lazy queue LUT on the kernel route against the
+    resident LUT; the einsum LUT, lazy, against phase 5 (a finding)."""
+    from repro_torch import kernels
+
+    t_phase = time.perf_counter()
+    lazy_sp = dataclasses.replace(tiled_lut_sp, lazy_queue_lut=True)
+    kernels.reset_launch_counts()
+    resident = eng.search(queries, tiled_lut_sp)
+    res_launches = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    lazy = eng.search(queries, lazy_sp)
+    lazy_launches = kernels.launch_counts()
+    if not (same_answers(lazy, resident) and same_traces(lazy, resident)):
+        raise AssertionError("the lazy queue LUT (LUT kernel) differs from "
+                             "the resident LUT")
+    if lazy_launches["pq_lut"] == 0:
+        raise AssertionError("the lazy route never launched pq_lut")
+    P = eng.index.p
+    m, k_pq = eng.index.codebook.shape[:2]
+    per = -(-len(queries) // P)
+    log(f"[lazy] batch 1 on mxu_tiled/bitonic/LUT kernel with "
+        f"lazy_queue_lut: ids, dists, five counters and traces bitwise "
+        f"equal to the resident LUT; wall {lazy.wall_s:.3f} s (resident "
+        f"{resident.wall_s:.3f} s); pq_lut launches {lazy_launches['pq_lut']}"
+        f" lazy vs {res_launches['pq_lut']} resident; launches lazy "
+        f"{lazy_launches}; queue LUT bytes {P * m * k_pq * 4} lazy vs "
+        f"{P * per * m * k_pq * 4} resident")
+    einsum = eng.search(queries, dataclasses.replace(
+        lazy_sp, lut_impl="einsum"))
+    log(f"[lazy einsum] batch 1 with the einsum LUT, lazy, against phase 5: "
+        f"{int((einsum.ids != kern.ids).sum())} of {kern.ids.size} ids and "
+        f"{int((einsum.dists != kern.dists).sum())} dists differ; five "
+        f"counters equal {all((einsum.stats[f] == kern.stats[f]).all() for f in STAT_KEYS)}"
+        f"; wall {einsum.wall_s:.3f} s")
+    log(f"[lazy] phase 14 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def sector_phase(torch, eng, ds, spec, cfg, queries, kern, mxu, kernel_sp,
+                 mxu_sp) -> None:
+    """Phase 15: the AiSAQ sector layout over phase 4's graph and
+    assignment, bitwise against phases 5 and 7, saved and loaded back."""
+    import shutil
+    import tempfile
+
+    from repro_torch import kernels
+    from repro_torch.api.deployment import Deployment
+    from repro_torch.api.engine import BatonEngine
+
+    t_phase = time.perf_counter()
+    sec = BatonEngine(device=eng.device)
+    t0 = time.perf_counter()
+    sec.build(ds, dataclasses.replace(spec, codes_mode="sector"),
+              graph=eng.index.graph, assign=eng.index.assign)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    idx, base = sec.index, eng.index
+    if not (torch.equal(idx.codes, base.codes)
+            and torch.equal(idx.codebook, base.codebook)):
+        raise AssertionError(
+            f"the sector build's PQ codes differ from phase 4's in "
+            f"{int((idx.codes != base.codes).any(1).sum())} rows (codebook "
+            f"equal {torch.equal(idx.codebook, base.codebook)})")
+    nbytes = idx.part_nbr_codes.numel() * idx.part_nbr_codes.element_size()
+    log(f"[sector] layout built over phase 4's graph and assignment in "
+        f"{t_build:.1f} s (stages (s): "
+        f"{json.dumps({k: round(v, 3) for k, v in sec.build_timings.items()})}"
+        f"); codes and codebook equal to phase 4's; part_nbr_codes "
+        f"{tuple(idx.part_nbr_codes.shape)} = {nbytes} bytes against the "
+        f"replicated codes' {base.codes.numel()} bytes it makes unneeded")
+    kernels.reset_launch_counts()
+    tiled = sec.search(queries, kernel_sp)
+    tiled_launches = kernels.launch_counts()
+    dense = sec.search(queries, mxu_sp)
+    if not (same_answers(tiled, kern) and same_traces(tiled, kern)):
+        raise AssertionError("sector layout (kernel route) differs from "
+                             "phase 5")
+    if not (same_answers(dense, mxu) and same_traces(dense, mxu)):
+        raise AssertionError("sector layout (dense route) differs from "
+                             "phase 7")
+    log(f"[sector] batch 1: kernel route bitwise equal to phase 5 (ids, "
+        f"dists, five counters, traces), wall {tiled.wall_s:.3f} s, "
+        f"launches {tiled_launches}; dense route (mxu, LUT kernel) bitwise "
+        f"equal to phase 7, wall {dense.wall_s:.3f} s")
+    build_dir = os.path.join(ROOT, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    root = tempfile.mkdtemp(dir=build_dir, prefix="ckpt_sector_")
+    try:
+        scfg = cfg.with_updates(index={"codes_mode": "sector"})
+        t0 = time.perf_counter()
+        Deployment.from_parts(scfg, sec).save(root)
+        t_save = time.perf_counter() - t0
+        n_saved = sum(os.path.getsize(os.path.join(dp, f))
+                      for dp, _, fs in os.walk(root) for f in fs)
+        t0 = time.perf_counter()
+        loaded = Deployment.load(root, device=eng.device)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        if loaded.config != scfg or \
+                not torch.equal(loaded.index.part_nbr_codes,
+                                idx.part_nbr_codes):
+            raise AssertionError("the loaded sector index differs")
+        back = loaded.search(queries)
+        if not same_answers(back, kern):
+            raise AssertionError("the loaded sector index answers "
+                                 "differently")
+        log(f"[sector ckpt] saved {n_saved} bytes in {t_save:.2f} s, loaded "
+            f"onto {eng.device} in {t_load:.2f} s; batch 1 bitwise equal to "
+            f"phase 5")
+        del loaded, back
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del sec, idx
+    torch.cuda.empty_cache()
+    log(f"[sector] phase 15 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def mutate_phase(torch, eng, ds, cfg, queries) -> None:
+    """Phase 16: ``Deployment.run_mutating`` with the fig22 mix over phase
+    4's dataset, on the kernel route."""
+    from repro_torch import kernels
+    from repro_torch.api.deployment import MUTATE_FIELDS, Deployment
+    from repro_torch.core import mutate as mutate_mod
+
+    t_phase = time.perf_counter()
+    mcfg = cfg.with_updates(
+        sim={"send_rate": 2000.0, "n_arrivals": 2000},
+        mutate={"insert_frac": 0.10, "delete_frac": 0.05,
+                "consolidate": True, "l_insert": 64, "ingest_rate": 500.0,
+                "recall_tol": 0.10, "seed": 0})
+    log(f"[mutate] fig22 mix over phase 4's {ds.n} rows, batch 1 "
+        f"({len(queries)} queries), kernel route: "
+        f"{json.dumps(dataclasses.asdict(mcfg.mutate))}")
+    # a spy around MutableIndex.search: the launches of each call (the
+    # first is the parity pin's, the last the mutated index's search)
+    searches = []
+    real_search = mutate_mod.MutableIndex.search
+
+    def spy(self, q, params):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = real_search(self, q, params)
+        searches.append((kernels.launch_counts(),
+                         time.perf_counter() - t0, self.n, self.n_live))
+        return out
+
+    mutate_mod.MutableIndex.search = spy
+    timings: dict = {}
+    try:
+        m = Deployment.from_parts(mcfg, eng, ds).run_mutating(
+            queries, timings=timings)
+    finally:
+        mutate_mod.MutableIndex.search = real_search
+    torch.cuda.empty_cache()
+    if tuple(m) != MUTATE_FIELDS:
+        raise AssertionError(f"run_mutating keys {tuple(m)}")
+    launches, t_search, n_rows, n_live = searches[-1]
+    checks = {
+        "parity": m["parity"],
+        "no deleted id returned": m["deleted_in_results"] == 0,
+        "n_live == n_base + n_inserted - n_deleted":
+            m["n_live"] == m["n_base"] + m["n_inserted"] - m["n_deleted"],
+        "mut_recall >= rebuilt_recall - 0.10":
+            m["mut_recall"] >= m["rebuilt_recall"] - 0.10,
+        "ingest offered == completed + rejected":
+            m["ingest_offered"] == m["ingest_completed"]
+            + m["ingest_rejected"] and m["ingest_offered"] > 0,
+        "slot ADC and top-k launched in the mutated search":
+            launches["pq_adc_slots"] > 0 and launches["bitonic_topk"] > 0,
+    }
+    log(f"[mutate] {json.dumps(m)}")
+    tm = {k: round(v, 3) for k, v in timings.items()}
+    log(f"[mutate] stages (s): {json.dumps(tm)}; inserts "
+        f"{m['n_inserted'] / max(timings['insert'], 1e-9):.1f}/s; the "
+        f"mutated search over {n_rows} rows ({n_live} live) took "
+        f"{t_search:.3f} s, launches {launches}")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 16 failed: {failed}")
+    log(f"[mutate] checks passed: {list(checks)}")
+    log(f"[mutate] phase 16 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=1_000_000)
@@ -1022,7 +1236,7 @@ def main(argv=None) -> int:
 
         # --- 9. the executable tier, open loop ---------------------------------
         rate = 0.5 * closed.throughput_qps
-        wl = make_workload(len(batches[1]), rate, 512, "poisson", seed=0)
+        wl = make_workload(len(batches[1]), rate, 256, "poisson", seed=0)
         kernels.reset_launch_counts()
         opened = tier.serve(batches[1], wl)
         log(tier_line("tier open", opened, kernels.launch_counts())
@@ -1071,6 +1285,13 @@ def main(argv=None) -> int:
                        reports["scatter_gather"]})
     torch.cuda.empty_cache()
     log(f"[ckpt] phase 13 took {time.perf_counter() - t0:.1f} s")
+    # --- 14. the lazy queue LUT ------------------------------------------------
+    lazy_phase(eng, batches[1], tiled_lut_sp, kern)
+    # --- 15. the sector layout (AiSAQ) -----------------------------------------
+    sector_phase(torch, eng, ds, spec, cfg, batches[1], kern, mxu,
+                 kernel_sp, mxu_sp)
+    # --- 16. live mutation ------------------------------------------------------
+    mutate_phase(torch, eng, ds, cfg, batches[1])
 
     if args.profile:
         profile_batch(torch, eng, batches[1], kernel_sp, args.profile)

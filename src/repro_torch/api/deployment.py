@@ -10,6 +10,9 @@ latency / bottleneck, the wall time of the search on the device, and (when
 ``sim.send_rate > 0``) the simulated latencies under load.  The modeled and
 simulated numbers price the paper's CPU/SSD cluster (``io_sim/disk.py``)
 from the events the search counted; they are not times of the device.
+``run_mutating`` makes the index a moving target (``core/mutate.py``:
+streamed inserts, tombstone deletes, consolidation) and prices its
+freshness lag with the simulator's ingest stage.
 Swapping engines is a one-line config change
 (``index.engine = baton | scatter_gather | exact``).
 
@@ -26,8 +29,10 @@ import dataclasses
 import json
 import os
 import re
+import time
 
 import numpy as np
+import torch
 
 from repro_torch import cluster
 from repro_torch.api.engine import SearchResult, get_engine
@@ -35,7 +40,7 @@ from repro_torch.checkpoint import ckpt
 from repro_torch.configs.batann_serve import (
     ServeConfig, parse_elastic, parse_faults, parse_straggler,
 )
-from repro_torch.core import ref
+from repro_torch.core import mutate as mutate_mod, ref
 from repro_torch.data import synth
 from repro_torch.ft import elastic as ft_elastic
 from repro_torch.io_sim.disk import DEFAULT as COST, CostModel
@@ -62,6 +67,13 @@ EXEC_FIELDS = (
     "throughput_qps", "makespan_s", "wire_bytes_per_handoff",
     "envelope_bytes", "parity", "batch", "advance_calls", "local_handoffs",
     "wire_frames", "wire_batons", "wire_bytes",
+)
+# Deployment.run_mutating() key schema, the reference's (same order)
+MUTATE_FIELDS = (
+    "enabled", "parity", "n_base", "n_inserted", "n_deleted", "n_live",
+    "mut_recall", "rebuilt_recall", "recall_gap", "deleted_in_results",
+    "ingest_rate", "ingest_offered", "ingest_completed", "ingest_rejected",
+    "freshness_lag_s", "freshness_p99_s", "sim_qps",
 )
 
 
@@ -410,6 +422,185 @@ class Deployment:
             queries = self.dataset.queries
         return run_exec(self.engine, self.config.exec, self.config.search,
                         queries)
+
+    # --- live mutation (core/mutate.py) ------------------------------------
+    def _mutation_workload_sim(self, mi, stats: dict, mc) -> dict:
+        """Event-simulate the mutated index's traces under the config's
+        workload with the ingest write stage on; returns throughput and the
+        simulator's ``diag['ingest']`` block (empty when no writes)."""
+        sim = self.config.sim
+        eng_m = get_engine("baton", index=mi.index, device=mi.device)
+        traces = eng_m.cluster_traces(stats, self.config.search, self.dim)
+        homes = cluster.trace_homes(traces)
+        wl = cluster.make_workload(len(traces), sim.send_rate,
+                                   sim.n_arrivals, sim.arrival,
+                                   seed=sim.seed, homes=homes)
+        params = dataclasses.replace(
+            self.sim_params(), ingest_rate=mc.ingest_rate,
+            ingest_bytes=mc.ingest_bytes, ingest_sectors=mc.ingest_sectors,
+            ingest_seed=mc.seed)
+        res = cluster.simulate(traces, mi.index.p, wl, params)
+        return {"qps": res.throughput_qps,
+                "ingest": res.diag.get("ingest", {})}
+
+    def _frozen_parity(self, queries) -> bool:
+        """The mutation-off pin: a zero-mutation ``MutableIndex`` answers
+        bitwise as ``Engine.search`` does, and the simulator's event log
+        with ``ingest_rate=0`` equals the default-params log."""
+        base = self.search(queries)
+        mi0 = mutate_mod.MutableIndex(self.index, copy=True)
+        pids, pdists, _ = mi0.search(
+            queries, self.engine.baton_params(self.config.search))
+        del mi0
+        ok = bool(np.array_equal(pids, base.ids)
+                  and np.array_equal(pdists, base.dists))
+        if ok and self.config.sim.send_rate > 0:
+            sim = self.config.sim
+            traces = self.cluster_traces(base.stats)
+            homes = cluster.trace_homes(traces)
+            wl = cluster.make_workload(len(traces), sim.send_rate,
+                                       sim.n_arrivals, sim.arrival,
+                                       seed=sim.seed, homes=homes)
+            p_def = dataclasses.replace(self.sim_params(),
+                                        record_events=True)
+            p_off = dataclasses.replace(
+                p_def, ingest_rate=0.0,
+                ingest_seed=self.config.mutate.seed)
+            r_def = cluster.simulate(traces, self.n_servers, wl, p_def)
+            r_off = cluster.simulate(traces, self.n_servers, wl, p_off)
+            ok = bool(r_def.events == r_off.events)
+        return ok
+
+    def run_mutating(self, queries=None, timings: "dict | None" = None
+                     ) -> dict:
+        """Run the config's ``mutate`` section: stream inserts, tombstone
+        deletes, consolidate, and measure freshness, recall and QPS.
+
+        A fraction of the dataset is held back at build time and streamed
+        in through ``core.mutate.MutableIndex`` (256 a batch),
+        ``mutate.delete_frac`` of the base points are tombstoned, the
+        consolidation pass splices and reclaims their rows, and the
+        mutated index is searched (on this engine's device) and
+        event-simulated under the mixed read/write workload.  ``timings``
+        (if given) receives the wall seconds of each stage (``base_build``,
+        ``insert``, ``delete``, ``consolidate``, ``search``, ``rebuild``,
+        ``sim``, plus ``parity``).
+
+        Returns:
+            The ``MUTATE_FIELDS`` dict — mutation counts, mutated-index
+            recall against a same-size index rebuilt from scratch (exact
+            ground truth on the live set), the count of tombstoned ids in
+            any result row (must be 0), simulated freshness lag and
+            throughput, and ``parity``: the mutation-off pin.
+
+        Raises:
+            ValueError: if the engine is not the baton engine, or mutation
+                is enabled without a dataset to stream from.
+        """
+        mc = self.config.mutate
+        sp = self.config.search
+        if self.engine.name != "baton":
+            raise ValueError(
+                f"mutation requires the baton engine: {self.engine.name}")
+        dev = self.engine.device
+        tm = timings if timings is not None else {}
+
+        def lap(name, t0):
+            tm[name] = tm.get(name, 0.0) + time.perf_counter() - t0
+            return time.perf_counter()
+
+        if queries is None:
+            queries = self.dataset.queries
+        queries = np.asarray(queries, np.float32)
+        t0 = time.perf_counter()
+        parity = self._frozen_parity(queries)
+        t0 = lap("parity", t0)
+
+        if not mc.enabled:
+            return {
+                "enabled": False, "parity": parity,
+                "n_base": int(self.index.n), "n_inserted": 0,
+                "n_deleted": 0, "n_live": int(self.index.n),
+                "mut_recall": float("nan"),
+                "rebuilt_recall": float("nan"),
+                "recall_gap": float("nan"), "deleted_in_results": 0,
+                "ingest_rate": 0.0, "ingest_offered": 0,
+                "ingest_completed": 0, "ingest_rejected": 0,
+                "freshness_lag_s": float("nan"),
+                "freshness_p99_s": float("nan"),
+                "sim_qps": float("nan"),
+            }
+
+        if self.dataset is None:
+            raise ValueError(
+                "mutation needs the deployment's dataset to stream from")
+        vectors = np.ascontiguousarray(self.dataset.vectors, np.float32)
+        n_total = vectors.shape[0]
+        n_ins = int(n_total * mc.insert_frac)
+        n_base = n_total - n_ins
+        rng = np.random.default_rng(mc.seed)
+
+        # build the base index on the held-back prefix, then stream the
+        # tail in (global id == dataset row id: appends are in order)
+        base_eng = get_engine("baton", device=dev)
+        base_eng.build(vectors[:n_base], self.config.index)
+        t0 = lap("base_build", t0)
+        mi = mutate_mod.MutableIndex(base_eng.index, copy=False)
+        for s in range(n_base, n_total, 256):
+            mi.insert(vectors[s:s + 256], l_insert=mc.l_insert or None)
+        t0 = lap("insert", t0)
+        n_del = int(n_base * mc.delete_frac)
+        del_ids = (rng.choice(n_base, n_del, replace=False)
+                   if n_del else np.empty(0, np.int64))
+        mi.delete(del_ids)
+        t0 = lap("delete", t0)
+        if mc.consolidate:
+            mi.consolidate()
+        t0 = lap("consolidate", t0)
+
+        bp = base_eng.baton_params(sp)
+        ids, dists, stats = mi.search(queries, bp)
+        dead_hits = int(np.count_nonzero(
+            ~mi.live_mask[np.clip(ids, 0, mi.n - 1)] & (ids >= 0)))
+        live = mi.live_ids()
+        live_vecs = mi.vectors[torch.from_numpy(live).to(dev)]
+        gt_local = ref.brute_force_knn(live_vecs, queries, sp.k,
+                                       device=dev).cpu().numpy()
+        mut_recall = float(ref.recall_at_k(ids, live[gt_local], sp.k))
+        t0 = lap("search", t0)
+
+        # the from-scratch yardstick: same spec, built on the live set only
+        reb_eng = get_engine("baton", device=dev)
+        reb_eng.build(live_vecs.cpu().numpy(), self.config.index)
+        del live_vecs
+        reb = reb_eng.search(queries, sp)
+        rebuilt_recall = float(ref.recall_at_k(reb.ids, gt_local, sp.k))
+        del reb_eng
+        t0 = lap("rebuild", t0)
+
+        ing: dict = {}
+        sim_qps = float("nan")
+        if self.config.sim.send_rate > 0:
+            sim_out = self._mutation_workload_sim(mi, stats, mc)
+            sim_qps = sim_out["qps"]
+            ing = sim_out["ingest"]
+        lap("sim", t0)
+        return {
+            "enabled": True, "parity": parity,
+            "n_base": int(n_base), "n_inserted": int(mi.n_inserted),
+            "n_deleted": int(mi.n_deleted), "n_live": int(mi.n_live),
+            "mut_recall": mut_recall,
+            "rebuilt_recall": rebuilt_recall,
+            "recall_gap": rebuilt_recall - mut_recall,
+            "deleted_in_results": dead_hits,
+            "ingest_rate": float(mc.ingest_rate),
+            "ingest_offered": int(ing.get("offered", 0)),
+            "ingest_completed": int(ing.get("completed", 0)),
+            "ingest_rejected": int(ing.get("rejected", 0)),
+            "freshness_lag_s": float(ing.get("mean_lag_s", float("nan"))),
+            "freshness_p99_s": float(ing.get("p99_lag_s", float("nan"))),
+            "sim_qps": float(sim_qps),
+        }
 
     # --- index persistence (checkpoint/ckpt.py) ----------------------------
     def save(self, directory: str) -> str:

@@ -149,7 +149,8 @@ class BatonEngine:
         synchronize(self.device)
         t0 = time.perf_counter()
         ids, dists, stats = baton.run_simulated(
-            self.index, np.asarray(queries, np.float32), cfg, meter=meter)
+            self.index, np.asarray(queries, np.float32), cfg, meter=meter,
+            sector_codes=self.index.part_nbr_codes is not None)
         return SearchResult(ids=ids, dists=dists, stats=stats,
                             wall_s=time.perf_counter() - t0)
 
@@ -209,6 +210,8 @@ class BatonEngine:
             "assign": _host(idx.assign),
             "graph_neighbors": _host(idx.graph.neighbors),
         }
+        if idx.part_nbr_codes is not None:
+            tree["part_nbr_codes"] = _host(idx.part_nbr_codes)
         meta = {
             "n": int(idx.n), "p": int(idx.p), "dim": int(idx.dim),
             "head_medoid": int(idx.head_medoid),
@@ -220,9 +223,8 @@ class BatonEngine:
         return tree, meta
 
     def load_index(self, tree: dict, meta: dict):
-        """Load a tree/meta pair from either package onto this device."""
-        if tree.get("part_nbr_codes") is not None:
-            raise NotImplementedError(baton._NOT_PORTED["sector"])
+        """Load a tree/meta pair from either package onto this device
+        (a sector-layout tree carries ``part_nbr_codes``)."""
         dev = self.device
 
         def t(name):
@@ -242,6 +244,9 @@ class BatonEngine:
             head_sample_ids=t("head_sample_ids"),
             head_medoid=meta["head_medoid"],
             assign=np.asarray(tree["assign"], np.int32), graph=graph,
+            part_nbr_codes=(t("part_nbr_codes")
+                            if tree.get("part_nbr_codes") is not None
+                            else None),
         )
         return self.index
 

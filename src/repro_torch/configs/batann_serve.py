@@ -1,13 +1,11 @@
 """The ``batann-serve`` deployment as configuration.
 
-A copy of the data/index/search/sim/exec sections of
+A copy of the data/index/search/sim/exec/mutate sections of
 ``repro/configs/batann_serve.py`` with the same fields, defaults and
-validation (the sim section's parsers included), so a config written for
-one package describes the same deployment in the other.
-``SearchParams.lut_impl`` is the port's own (the LUT-kernel switch, off by
-default).  The mutation section waits for ROADMAP queue 1 item 7:
-``ServeConfig.from_dict`` accepts a reference dict's ``mutate`` section only
-at its default values.
+validation (the sim section's parsers and the cross-section checks
+included), so a config written for one package describes the same
+deployment in the other.  ``SearchParams.lut_impl`` is the port's own (the
+LUT-kernel switch, off by default).
 """
 
 from __future__ import annotations
@@ -318,23 +316,65 @@ def parse_faults(spec: str) -> list[tuple[float, str, int]]:
     return out
 
 
+@dataclasses.dataclass(frozen=True)
+class MutateSpec:
+    """Live-mutation section (``core.mutate`` — streaming inserts/deletes).
+
+    All-zero defaults disable the tier entirely: ``Deployment.run_mutating``
+    then only runs the frozen-path parity pin (mutation off ⇒ bit-identical
+    answers and simulator event logs to the static engine).  With
+    ``insert_frac > 0`` the deployment holds back that fraction of the
+    dataset at build time and streams it in via ``MutableIndex.insert``;
+    ``delete_frac`` tombstones that fraction of the *base* points;
+    ``consolidate`` runs the background merge pass after the deletes.
+    ``ingest_rate``/``ingest_bytes`` drive the cluster simulator's write
+    stage (``SimParams.ingest_rate`` — writes contend with reads for SSD
+    channels and NICs), pricing freshness lag.  ``recall_tol`` pins the
+    oracle-parity acceptance: mutated-index recall must be within this
+    tolerance of a same-size rebuilt-from-scratch index.
+    """
+
+    insert_frac: float = 0.0     # dataset fraction streamed in post-build
+    delete_frac: float = 0.0     # base fraction tombstoned post-insert
+    consolidate: bool = True     # run the background merge after deletes
+    l_insert: int = 0            # insert beam width (0 = graph L_build)
+    ingest_rate: float = 0.0     # simulator writes/s (0 = no write stage)
+    ingest_bytes: int = 4096     # replication/ack bytes per write
+    ingest_sectors: int = 1      # SSD sectors per write
+    recall_tol: float = 0.05     # mutated vs rebuilt recall tolerance
+    seed: int = 0
+
+    @property
+    def enabled(self) -> bool:
+        return self.insert_frac > 0 or self.delete_frac > 0
+
+    def __post_init__(self):
+        for name in ("insert_frac", "delete_frac"):
+            v = getattr(self, name)
+            if not 0.0 <= v < 1.0:
+                raise ValueError(f"{name} must be in [0, 1): {v}")
+        if self.l_insert < 0:
+            raise ValueError(f"l_insert must be >= 0: {self.l_insert}")
+        if self.ingest_rate < 0:
+            raise ValueError(f"ingest_rate must be >= 0: {self.ingest_rate}")
+        if self.ingest_bytes < 0:
+            raise ValueError(
+                f"ingest_bytes must be >= 0: {self.ingest_bytes}")
+        if self.ingest_sectors < 0:
+            raise ValueError(
+                f"ingest_sectors must be >= 0: {self.ingest_sectors}")
+        if self.recall_tol < 0:
+            raise ValueError(f"recall_tol must be >= 0: {self.recall_tol}")
+
+
 _SECTIONS = {"data": DataSpec, "index": IndexSpec, "search": SearchParams,
-             "sim": SimSpec, "exec": ExecSpec}
-# The reference's mutation section at its defaults (mutation off): the only
-# value of it this package accepts until mutation is ported
-_MUTATE_DEFAULTS = {
-    "insert_frac": 0.0, "delete_frac": 0.0, "consolidate": True,
-    "l_insert": 0, "ingest_rate": 0.0, "ingest_bytes": 4096,
-    "ingest_sectors": 1, "recall_tol": 0.05, "seed": 0,
-}
-MUTATE_NOT_PORTED = (
-    "a mutate section with non-default values needs live mutation, which is "
-    "not ported yet (ROADMAP queue 1 item 7)")
+             "sim": SimSpec, "exec": ExecSpec, "mutate": MutateSpec}
 
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
-    """One deployment: dataset + index + search + sim + exec sections."""
+    """One deployment: dataset + index + search + sim + exec + mutate
+    sections."""
 
     name: str = "batann-serve"
     data: DataSpec = dataclasses.field(default_factory=DataSpec)
@@ -342,6 +382,7 @@ class ServeConfig:
     search: SearchParams = dataclasses.field(default_factory=SearchParams)
     sim: SimSpec = dataclasses.field(default_factory=SimSpec)
     exec: ExecSpec = dataclasses.field(default_factory=ExecSpec)
+    mutate: MutateSpec = dataclasses.field(default_factory=MutateSpec)
 
     def __post_init__(self):
         # straggler and fault servers must address real servers (an elastic
@@ -369,6 +410,21 @@ class ServeConfig:
                 raise ValueError(
                     f"exec.workers ({self.exec.workers}) must be <= "
                     f"index.p ({self.index.p})")
+        # live mutation grows the baton index through core.mutate — the
+        # other engines (and the sector codes layout) have no insert path
+        if self.mutate.enabled:
+            if self.index.engine != "baton":
+                raise ValueError(
+                    "mutation requires index.engine == 'baton': "
+                    f"{self.index.engine}")
+            if self.index.codes_mode != "replicated":
+                raise ValueError(
+                    "mutation requires index.codes_mode == 'replicated' "
+                    f"(sector layouts are frozen): {self.index.codes_mode}")
+        if self.mutate.ingest_rate > 0 and self.sim.send_rate <= 0:
+            raise ValueError(
+                "mutate.ingest_rate needs the event simulator: set "
+                "sim.send_rate > 0")
 
     def with_updates(self, **sections) -> "ServeConfig":
         """New config with per-section field updates:
@@ -393,15 +449,7 @@ class ServeConfig:
 
     @classmethod
     def from_dict(cls, d: dict) -> "ServeConfig":
-        """Inverse of :meth:`to_dict`; also reads the reference's dicts.
-        Their ``mutate`` section is accepted only at its default values: a
-        non-default one raises ``NotImplementedError`` (never dropped)."""
-        mutate = d.get("mutate", {})
-        unknown = sorted(set(mutate) - set(_MUTATE_DEFAULTS))
-        if unknown:
-            raise TypeError(f"unknown mutate fields: {unknown}")
-        if any(v != _MUTATE_DEFAULTS[k] for k, v in mutate.items()):
-            raise NotImplementedError(MUTATE_NOT_PORTED)
+        """Inverse of :meth:`to_dict`; also reads the reference's dicts."""
         kw = {"name": d.get("name", "batann-serve")}
         for sec, typ in _SECTIONS.items():
             kw[sec] = typ(**d.get(sec, {}))

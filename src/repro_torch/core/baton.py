@@ -10,7 +10,8 @@ a handful of tensor ops over all P·S resident slots, and one
 Super-steps, as in the reference:
 
 1. ``refill`` — start queued queries in free slots (beam seeded from the
-   head-index entry points; the LUT built at enqueue rides in the state);
+   head-index entry points; the LUT built at enqueue rides in the state,
+   or under ``lazy_queue_lut`` is built here for the rows it may seed);
 2. ``local_advance`` — explore local frontier nodes until every slot is
    done or blocked on a remote node.  The reference's ``while_loop`` under
    ``vmap`` becomes a host loop with a per-partition ``(progressed, it)``
@@ -24,8 +25,10 @@ Every loop condition and every scatter that the reference writes with
 ``nonzero`` of an explicit in-range filter before ``index_put``); a
 ``SyncMeter`` counts them and the time the host spends blocked in them.
 
-Modes this slice does not carry raise ``NotImplementedError`` naming their
-ROADMAP item instead of taking another route.
+The sector layout (``build_index(codes_mode="sector")``) stores each
+node's neighbours' PQ codes in its sector (``part_nbr_codes``) and drops
+the replicated code array to a (1, M) placeholder; entry points are scored
+by the head index, so nothing on this path gathers from the placeholder.
 """
 
 from __future__ import annotations
@@ -49,12 +52,6 @@ from repro_torch.core.state import (
 from repro_torch.device import SyncMeter, resolve_device, timed
 
 I32 = torch.int32
-
-_NOT_PORTED = {
-    "sector": "codes_mode='sector' (AiSAQ sector codes) is not ported yet "
-              "(ROADMAP queue 1 item 3)",
-    "lazy": "lazy_queue_lut=True is not ported yet (ROADMAP queue 1 item 4)",
-}
 
 
 # ---------------------------------------------------------------------------
@@ -83,7 +80,9 @@ class BatonParams:
     merge_impl: str = "lexsort"  # "lexsort" | "bitonic" (CUDA top-k kernel)
     ship_lut: bool = False   # §8: ship the LUT in the envelope vs rebuild
     lut_wire_dtype: str = "f32"  # f32 | f16 | i8 wire LUT (with ship_lut)
-    lazy_queue_lut: bool = False
+    lazy_queue_lut: bool = False  # build queued queries' LUTs at refill
+    #                          (P·S builds a super-step) instead of keeping
+    #                          a (Q, M, K) array resident; same answers
     trace_cap: int = 32      # residency segments recorded per query
     lut_impl: str = "einsum"  # "einsum" (the reference's build_lut) |
     #                           "kernel" (CUDA LUT kernel; port only)
@@ -102,8 +101,6 @@ class BatonParams:
             raise ValueError(f"lut_impl must be einsum|kernel: {self.lut_impl}")
         if self.trace_cap < 1:
             raise ValueError(f"trace_cap must be >= 1: {self.trace_cap}")
-        if self.lazy_queue_lut:
-            raise NotImplementedError(_NOT_PORTED["lazy"])
 
     @property
     def refill_headroom(self) -> int:
@@ -130,13 +127,27 @@ class BatonIndex:
     head_medoid: int
     assign: np.ndarray            # (N,) partition assignment (host)
     graph: vamana.VamanaGraph
-    part_nbr_codes: None = None   # sector layout: not ported
+    part_nbr_codes: "torch.Tensor | None" = None  # (P, Npmax, R, M) uint8
+    #                                               sector layout only
 
     @property
     def device(self) -> torch.device:
         return self.part_vectors.device
 
-    def stacked_shards(self) -> Shard:
+    def stacked_shards(self, sector_codes: bool = False) -> Shard:
+        """The stacked shard; ``sector_codes=True`` is the AiSAQ layout:
+        neighbour codes ride in the sectors and the replicated code array
+        shrinks to a (1, M) placeholder."""
+        if sector_codes:
+            if self.part_nbr_codes is None:
+                raise ValueError("sector_codes needs an index built with "
+                                 "codes_mode='sector'")
+            return Shard(
+                vectors=self.part_vectors, neighbors=self.part_neighbors,
+                codes=torch.zeros((1, self.codes.shape[1]), dtype=torch.uint8,
+                                  device=self.device),
+                node2part=self.node2part, node2local=self.node2local,
+                nbr_codes=self.part_nbr_codes)
         return Shard(vectors=self.part_vectors, neighbors=self.part_neighbors,
                      codes=self.codes, node2part=self.node2part,
                      node2local=self.node2local)
@@ -165,11 +176,10 @@ def build_index(
     timings: "dict | None" = None,
 ) -> BatonIndex:
     """Build the global graph, partition it, lay out per-partition sectors,
-    train and encode PQ, build the head index.  ``timings`` (if given)
-    receives each stage's wall seconds."""
-    if codes_mode == "sector":
-        raise NotImplementedError(_NOT_PORTED["sector"])
-    if codes_mode != "replicated":
+    train and encode PQ, build the head index; ``codes_mode="sector"`` also
+    lays each sector's neighbour codes out beside it (``part_nbr_codes``).
+    ``timings`` (if given) receives each stage's wall seconds."""
+    if codes_mode not in ("replicated", "sector"):
         raise ValueError(f"codes_mode must be replicated|sector: {codes_mode}")
     dev = resolve_device(device)
     vectors = np.ascontiguousarray(vectors, np.float32)
@@ -205,6 +215,10 @@ def build_index(
     with timed(timings, "head_index", dev):
         head = head_index.build(vectors, fraction=head_fraction, seed=seed,
                                 device=dev)
+    part_nbr_codes = None
+    if codes_mode == "sector":
+        with timed(timings, "sector_codes", dev):
+            part_nbr_codes = sector_codes(codes, part_neighbors)
     return BatonIndex(
         n=n, p=p, dim=d, part_vectors=part_vectors,
         part_neighbors=part_neighbors, codes=codes, codebook=cb.centroids,
@@ -212,8 +226,16 @@ def build_index(
         node2local=torch.as_tensor(node2local, device=dev),
         head_vectors=head.vectors, head_neighbors=head.neighbors,
         head_sample_ids=head.sample_ids, head_medoid=head.medoid,
-        assign=assign, graph=graph,
+        assign=assign, graph=graph, part_nbr_codes=part_nbr_codes,
     )
+
+
+def sector_codes(codes: torch.Tensor, part_neighbors: torch.Tensor):
+    """The AiSAQ sector layout: (P, Npmax, R, M) codes of every sector's
+    neighbours, ``codes[clip(part_neighbors, 0, n - 1)]`` as the reference
+    lays it out (NO_ID padding takes row 0's codes and is never scored)."""
+    n = codes.shape[0]
+    return codes[part_neighbors.clamp(0, n - 1).long()]
 
 
 # ---------------------------------------------------------------------------
@@ -227,7 +249,9 @@ class DeviceState(NamedTuple):
     queue_qid: torch.Tensor      # (P, Q)  -1 = padding
     queue_starts: torch.Tensor   # (P, Q, n_starts) global entry ids
     queue_start_d: torch.Tensor  # (P, Q, n_starts) head-index distances
-    queue_lut: torch.Tensor      # (P, Q, M, K) per-query LUTs, built once
+    queue_lut: torch.Tensor      # (P, Q, M, K) per-query LUTs, built once —
+    #                              or (P, 1, M, K) zeros under
+    #                              lazy_queue_lut (built at refill instead)
     queue_head: torch.Tensor     # (P,) next queue row to start
     out_ids: torch.Tensor        # (P, Q, k)
     out_dists: torch.Tensor      # (P, Q, k)
@@ -266,12 +290,17 @@ def _scatter(buf, index, values):
 def init_device_state(queries, qids, starts, start_d, cfg: BatonParams,
                       codebook) -> DeviceState:
     """Per-device state for queries (P, Q, d).  Builds every queued query's
-    LUT here — the one ``build_lut`` of its lifetime in ship mode."""
+    LUT here — the one ``build_lut`` of its lifetime in ship mode — unless
+    ``cfg.lazy_queue_lut`` defers the builds to ``refill`` (a (P, 1, M, K)
+    placeholder then stands in for the queue's LUTs)."""
     P, Q, d = queries.shape
     m, k_pq = codebook.shape[0], codebook.shape[1]
     dev = queries.device
-    queue_lut = pq.build_lut(codebook, queries.reshape(P * Q, d),
-                             impl=cfg.lut_impl).reshape(P, Q, m, k_pq)
+    if cfg.lazy_queue_lut:
+        queue_lut = torch.zeros((P, 1, m, k_pq), device=dev)
+    else:
+        queue_lut = pq.build_lut(codebook, queries.reshape(P * Q, d),
+                                 impl=cfg.lut_impl).reshape(P, Q, m, k_pq)
     return DeviceState(
         states=empty_state(d, cfg.L, cfg.pool, m=m, k_pq=k_pq,
                            trace_cap=cfg.trace_cap, shape=(P, cfg.slots),
@@ -294,10 +323,14 @@ def init_device_state(queries, qids, starts, start_d, cfg: BatonParams,
 # ---------------------------------------------------------------------------
 
 
-def refill(dev: DeviceState, cfg: BatonParams, my_part: torch.Tensor):
+def refill(dev: DeviceState, cfg: BatonParams, my_part: torch.Tensor,
+           codebook: "torch.Tensor | None" = None):
     """Start queued queries in free slots (paper §5 fixed-count balancing).
     The seeded state adopts the query's LUT from the queue (``lut_builds``
-    starts at 1 — the build at enqueue)."""
+    starts at 1 — the build at enqueue).  Under ``cfg.lazy_queue_lut`` the
+    LUTs of all P·S rows at their clamped queue positions (masked rows too,
+    as the reference builds them) are built here from ``codebook``
+    instead; the counter still reads 1 build a query."""
     st = dev.states
     P, S = st.active.shape
     q_total = dev.queue_qid.shape[1]
@@ -317,7 +350,14 @@ def refill(dev: DeviceState, cfg: BatonParams, my_part: torch.Tensor):
     emb = dev.queue_emb[pidx, row]                                # (P, S, d)
     qid = dev.queue_qid[pidx, row]
     starts = dev.queue_starts[pidx, row]                          # (P, S, ns)
-    lut = dev.queue_lut[pidx, row]                                # (P, S, M, K)
+    if cfg.lazy_queue_lut:
+        if codebook is None:
+            raise ValueError("lazy_queue_lut needs the codebook at refill")
+        lut = pq.build_lut(codebook, emb.reshape(P * S, -1),
+                           impl=cfg.lut_impl).reshape(
+                               (P, S) + tuple(codebook.shape[:2]))
+    else:
+        lut = dev.queue_lut[pidx, row]                            # (P, S, M, K)
     take = take & (qid >= 0)
     sd = torch.where(starts == NO_ID, INF, dev.queue_start_d[pidx, row])
 
@@ -596,9 +636,10 @@ def _trace_accumulate(dev: DeviceState, pre: Counters) -> DeviceState:
     return dev._replace(states=st._replace(trace=tr))
 
 
-def _superstep_local(dev, shard, cfg, my_part, n_parts, meter):
+def _superstep_local(dev, shard, cfg, my_part, n_parts, meter,
+                     codebook=None):
     """Phases 1-2 + route planning (everything before communication)."""
-    dev = refill(dev, cfg, my_part)
+    dev = refill(dev, cfg, my_part, codebook=codebook)
     pre = dev.states.counters
     dev = local_advance(dev, shard, cfg, my_part, meter)
     dev = _trace_accumulate(dev, pre)
@@ -667,12 +708,15 @@ def _collect(devs: DeviceState, qid_dev, cfg, B, Bp, P, per, n_supersteps):
 
 
 def run_simulated(index: BatonIndex, queries, cfg: BatonParams,
-                  meter: "SyncMeter | None" = None):
+                  meter: "SyncMeter | None" = None,
+                  sector_codes: bool = False):
     """Single-card driver: all P partitions advance together; routing is a
-    transpose of the (src, dst) send buffers.  Returns numpy
-    ``(ids (B, k), dists (B, k), stats)``; ``stats`` holds the per-query
-    counters, the traces, ``n_supersteps``, ``delivered``, and the host
-    syncs of the run with the seconds the host spent blocked in them."""
+    transpose of the (src, dst) send buffers.  ``sector_codes=True``
+    searches the AiSAQ layout (``BatonIndex.stacked_shards``).  Returns
+    numpy ``(ids (B, k), dists (B, k), stats)``; ``stats`` holds the
+    per-query counters, the traces, ``n_supersteps``, ``delivered``, and
+    the host syncs of the run with the seconds the host spent blocked in
+    them."""
     meter = meter or SyncMeter()
     count0, sec0 = meter.count, meter.seconds
     device = index.device
@@ -680,7 +724,7 @@ def run_simulated(index: BatonIndex, queries, cfg: BatonParams,
     q = torch.as_tensor(np.asarray(queries, np.float32), device=device)
     q_dev, qid_dev, st_dev, sd_dev, B, Bp, per = _split_round_robin(
         index, q, cfg, meter)
-    shard = index.stacked_shards()
+    shard = index.stacked_shards(sector_codes=sector_codes)
     codebook = index.codebook
     devs = init_device_state(q_dev, qid_dev, st_dev, sd_dev, cfg, codebook)
     my_parts = torch.arange(P, dtype=I32, device=device)
@@ -691,7 +735,7 @@ def run_simulated(index: BatonIndex, queries, cfg: BatonParams,
     n_supersteps, remaining = 0, 1
     while remaining > 0 and n_supersteps < cfg.max_supersteps:
         devs, res_buf, dest, want, free, rem = _superstep_local(
-            devs, shard, cfg, my_parts, P, meter)
+            devs, shard, cfg, my_parts, P, meter, codebook=codebook)
         grant = grant_matrix(want, free, cfg.pair_cap)
         bufs, devs = pack_sends(devs, dest, grant, cfg, P, meter)
         # all_to_all == transpose of the (src, dst) axes in simulation

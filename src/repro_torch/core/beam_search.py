@@ -311,25 +311,51 @@ def search_inmem(
 class Shard(NamedTuple):
     """The partitions' 'SSDs', stacked: partition p's sector-resident data
     is row p (local-id indexed); codes and maps are global + replicated
-    (paper §5 'Memory footprint').  A single server is P = 1."""
+    (paper §5 'Memory footprint').  A single server is P = 1.
+
+    ``nbr_codes`` is the AiSAQ sector layout: each sector also holds its
+    neighbours' PQ codes (R·M bytes), so the replicated ``codes`` is not
+    needed and may be a (1, M) placeholder (see :func:`candidate_codes`).
+    """
 
     vectors: torch.Tensor      # (P, Np, d) float32 — full precision, "disk"
     neighbors: torch.Tensor    # (P, Np, R) int32 global ids — "disk"
     codes: torch.Tensor        # (N, M) uint8 — replicated PQ codes
     node2part: torch.Tensor    # (N,) int32 — replicated routing map
     node2local: torch.Tensor   # (N,) int32 — global -> local slot on owner
+    nbr_codes: "torch.Tensor | None" = None  # (P, Np, R, M) uint8 — sectors
 
 
 def read_sectors(shard: Shard, gids: torch.Tensor, parts: torch.Tensor):
     """Simulated sector reads: gids (B, W) from partitions parts (B,) ->
-    vectors (B, W, d) and adjacency (B, W, R); NO_ID lanes read nothing."""
+    vectors (B, W, d), adjacency (B, W, R) and, in the sector layout, the
+    neighbours' codes (B, W, R, M) (else ``None``); NO_ID lanes read no
+    vector and no adjacency (their codes are never scored)."""
     n, np_ = shard.node2local.shape[0], shard.vectors.shape[1]
     loc = shard.node2local[gids.clamp(0, n - 1).long()].clamp(0, np_ - 1).long()
     part = parts.long()[:, None].expand_as(loc)
     ok = (gids != NO_ID)[..., None]
     vecs = torch.where(ok, shard.vectors[part, loc].to(torch.float32), 0.0)
     nbrs = torch.where(ok, shard.neighbors[part, loc], NO_ID)
-    return vecs, nbrs
+    ncodes = (shard.nbr_codes[part, loc] if shard.nbr_codes is not None
+              else None)
+    return vecs, nbrs, ncodes
+
+
+def candidate_codes(shard: Shard, cand: torch.Tensor, ncodes) -> torch.Tensor:
+    """PQ codes of candidates (..., C): the sector's neighbour codes
+    (..., W, R, M) in the W·R order of ``nbrs`` when the layout has them,
+    else rows of the replicated array.  The replicated array must cover
+    every node: a sector layout's (1, M) placeholder would return row 0
+    for every candidate, so a gather from it raises instead."""
+    if ncodes is not None:
+        return ncodes.reshape(cand.shape + (ncodes.shape[-1],))
+    n = shard.node2part.shape[0]
+    if shard.codes.shape[0] != n:
+        raise ValueError(
+            f"replicated codes cover {shard.codes.shape[0]} of {n} nodes: "
+            f"a sector-layout shard needs its nbr_codes")
+    return shard.codes[cand.clamp(0, n - 1).long()]
 
 
 def step_disk(
@@ -347,8 +373,8 @@ def step_disk(
     fused merges are held equal to); PQ scoring is the plain gather."""
     dev = frontier_mask.device
     gids = torch.where(frontier_mask, state.beam_ids[frontier_pos], NO_ID)
-    vecs, nbrs = read_sectors(shard, gids[None],
-                              torch.full((1,), part, device=dev))
+    vecs, nbrs, ncodes = read_sectors(shard, gids[None],
+                                      torch.full((1,), part, device=dev))
     vecs, nbrs = vecs[0], nbrs[0]                              # (W,d),(W,R)
     ed = sq_l2(vecs, state.query[None, :])
     ed = torch.where(gids == NO_ID, INF, ed)
@@ -368,8 +394,8 @@ def step_disk(
     cand = nbrs.reshape(-1)                                     # (W*R,)
     known = _contains(state.beam_ids, cand) | _contains(pool_ids, cand)
     cand = torch.where(known, NO_ID, cand)
-    n = shard.codes.shape[0]
-    cand_codes = shard.codes[cand.clamp(0, n - 1).long()]
+    cand_codes = candidate_codes(shard, cand,
+                                 None if ncodes is None else ncodes[0])
     cd_flat = pq.adc(lut[None], cand_codes)[0]
     # dedup within candidates (same neighbour from two expanded nodes)
     order = torch.sort(cand, stable=True).indices
@@ -427,7 +453,7 @@ def step_disk_batched(
         adc_impl = "gather"
     S, W = masks.shape
     gids = torch.where(masks, states.beam_ids.gather(1, fposs), NO_ID)
-    vecs, nbrs = read_sectors(shard, gids, parts)             # (S,W,d),(S,W,R)
+    vecs, nbrs, ncodes = read_sectors(shard, gids, parts)     # (S,W,d),(S,W,R)
     R = nbrs.shape[-1]
 
     ed = sq_l2(vecs, states.query[:, None, :])                 # (S, W)
@@ -450,8 +476,7 @@ def step_disk_batched(
     known = _contains_rows(states.beam_ids, cand) | \
         _contains_rows(pool_ids, cand)
     cand = torch.where(known, NO_ID, cand)
-    n = shard.codes.shape[0]
-    cand_codes = shard.codes[cand.clamp(0, n - 1).long()]      # (S, W*R, M)
+    cand_codes = candidate_codes(shard, cand, ncodes)          # (S, W*R, M)
 
     # --- the fused scoring call: all S slots at once ------------------------
     if adc_impl == "mxu_tiled":

@@ -46,6 +46,52 @@ class VamanaGraph:
         return {"mean": float(deg.double().mean()), "max": int(deg.max()),
                 "min": int(deg.min())}
 
+    def insert_batch(self, vectors, new_ids, live_mask=None,
+                     l_insert: "int | None" = None, max_hops: int = 128
+                     ) -> None:
+        """In-place streaming insert (the ParlayANN batch-insert loop body).
+
+        ``vectors`` is the full (N', d) array *including* the new points;
+        ``new_ids`` are the rows to link in.  Each new point beam-searches
+        the live graph from the medoid (beam ``l_insert``, default
+        ``max(L_build, R)``), robust-prunes its visited set into its row,
+        then reverse edges are added with overflow pruning — the ``build``
+        loop body on an already navigable graph.  ``live_mask`` (N',) masks
+        tombstoned rows out of the candidates, so no new edge points at a
+        deleted node.  Grows ``neighbors`` to N' rows on demand.
+        """
+        dev = self.neighbors.device
+        tvec = torch.as_tensor(vectors, dtype=torch.float32, device=dev)
+        new_ids = torch.as_tensor(np.asarray(new_ids, np.int64)
+                                  if not torch.is_tensor(new_ids)
+                                  else new_ids, device=dev).long()
+        if new_ids.numel() == 0:
+            return
+        n_new = tvec.shape[0]
+        if n_new > self.neighbors.shape[0]:
+            grown = torch.full((n_new, self.R), NO_ID, dtype=I32, device=dev)
+            grown[:self.neighbors.shape[0]] = self.neighbors
+            self.neighbors = grown
+        # rows being (re-)inserted start with a clean slate
+        self.neighbors[new_ids] = NO_ID
+        L = int(l_insert) if l_insert else max(self.L_build, self.R)
+        start_ids = torch.tensor([self.medoid], dtype=I32, device=dev)
+        res = _batched_search(tvec, self.neighbors, tvec[new_ids], start_ids,
+                              L=L, max_hops=max_hops)
+        cand_ids = torch.cat([res.visited_ids, res.beam_ids], 1)
+        cand_dists = torch.cat([res.visited_dists, res.beam_dists], 1)
+        if live_mask is not None:
+            live = torch.as_tensor(live_mask, device=dev)
+            dead = (cand_ids < 0) | ~live[
+                cand_ids.clamp(0, live.shape[0] - 1).long()]
+            cand_ids = torch.where(dead, NO_ID, cand_ids)
+            cand_dists = torch.where(dead, INF, cand_dists)
+        pruned = _prune_rows(tvec[new_ids], cand_ids, cand_dists, tvec,
+                             self.R, self.alpha)
+        self.neighbors[new_ids] = pruned
+        _add_reverse_edges(tvec, self.neighbors, new_ids, pruned, self.R,
+                           self.alpha)
+
 
 def _medoid(vectors: np.ndarray) -> int:
     """Nearest point to the mean, in numpy (the reference's arithmetic)."""

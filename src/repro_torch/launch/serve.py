@@ -8,6 +8,8 @@
         --servers 4 --queries 32 --exec-workers 2 --exec-batch 4
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --config batann-serve-smoke --send-rate 200 --index-cache build/idx
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+        --config batann-serve-smoke --insert-frac 0.1 --delete-frac 0.05
 
 Config-driven, as the reference's launcher: ``--config <name>`` picks a
 ``ServeConfig`` preset and every other flag overrides a field of it.  The
@@ -23,7 +25,11 @@ simulator's block: latencies under load on the modeled cluster), the
 search's wall time and QPS on the device, then one JSON line of the same
 numbers.  With ``--exec-workers N`` it then serves the same queries through
 the executable tier (closed loop, or open loop at ``--exec-rate``) and
-prints that JSON dict as another line.
+prints that JSON dict as another line.  With ``--insert-frac`` /
+``--delete-frac`` it then runs ``Deployment.run_mutating`` (streamed
+inserts, tombstones, consolidation; ``--ingest-rate`` prices the writes in
+the simulator) and prints the reference's ``mutated (...)`` and
+``ingest @...`` lines, then that JSON dict as another line.
 """
 
 from __future__ import annotations
@@ -60,6 +66,20 @@ def build_argparser() -> argparse.ArgumentParser:
     ap.add_argument("--L", type=int, default=None)
     ap.add_argument("--W", type=int, default=None)
     ap.add_argument("--k", type=int, default=None)
+    ap.add_argument("--slots", type=int, default=None)
+    ap.add_argument("--sector-codes", default=None,
+                    action=argparse.BooleanOptionalAction,
+                    help="AiSAQ sector layout (no replicated PQ array)")
+    ap.add_argument("--ship-lut", default=None,
+                    action=argparse.BooleanOptionalAction,
+                    help="ship the PQ LUT inside the hand-off envelope "
+                         "instead of rebuilding it on arrival")
+    ap.add_argument("--lut-wire", default=None, choices=["f32", "f16", "i8"],
+                    help="wire dtype of the shipped LUT")
+    ap.add_argument("--lazy-lut", default=None,
+                    action=argparse.BooleanOptionalAction,
+                    help="build queued queries' PQ LUTs at refill instead "
+                         "of keeping a (Q, M, K) array resident")
     ap.add_argument("--adc-impl", default=None,
                     choices=["gather", "mxu", "mxu_tiled"])
     ap.add_argument("--merge-impl", default=None,
@@ -123,6 +143,17 @@ def build_argparser() -> argparse.ArgumentParser:
                     help="arrivals to inject at --exec-rate")
     ap.add_argument("--exec-batch", type=int, default=None,
                     help="batons advanced per worker loop iteration")
+    ap.add_argument("--insert-frac", type=float, default=None,
+                    help="fraction of the dataset held back at build time "
+                         "and streamed in as live inserts (run_mutating); "
+                         "reports mutated-index recall against a rebuild")
+    ap.add_argument("--delete-frac", type=float, default=None,
+                    help="fraction of the base points tombstoned after the "
+                         "inserts land (then consolidated)")
+    ap.add_argument("--ingest-rate", type=float, default=None,
+                    help="write rate (inserts/s) for the event simulator's "
+                         "ingest stage; adds freshness lag (needs "
+                         "--send-rate)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return ap
 
@@ -132,8 +163,13 @@ def config_from_args(args):
     return SERVE_CONFIGS[args.config].with_updates(
         data={"n": args.n, "n_queries": args.queries},
         index={"p": args.servers, "engine": args.engine,
-               "partitioner": args.partitioner},
-        search={"L": args.L, "W": args.W, "k": args.k,
+               "partitioner": args.partitioner,
+               "codes_mode": (None if args.sector_codes is None
+                              else "sector" if args.sector_codes
+                              else "replicated")},
+        search={"L": args.L, "W": args.W, "k": args.k, "slots": args.slots,
+                "ship_lut": args.ship_lut, "lut_wire_dtype": args.lut_wire,
+                "lazy_queue_lut": args.lazy_lut,
                 "adc_impl": args.adc_impl, "merge_impl": args.merge_impl,
                 "lut_impl": args.lut_impl},
         sim={"send_rate": args.send_rate, "arrival": args.arrival,
@@ -147,6 +183,9 @@ def config_from_args(args):
         exec={"workers": args.exec_workers, "send_rate": args.exec_rate,
               "arrival": args.arrival, "n_arrivals": args.exec_arrivals,
               "batch": args.exec_batch},
+        mutate={"insert_frac": args.insert_frac,
+                "delete_frac": args.delete_frac,
+                "ingest_rate": args.ingest_rate},
     )
 
 
@@ -175,6 +214,24 @@ def print_sim(cfg, s: dict) -> None:
               f"lost={s['lost']} reissued={s['reissued']} "
               f"failover_hops={s['failover_hops']} "
               f"hedge_wins={s['hedge_wins']}")
+
+
+def print_mutating(cfg, m: dict) -> None:
+    """The mutation block as the reference's launcher prints it."""
+    print(f"  mutated ({m['n_inserted']} inserts, {m['n_deleted']} "
+          f"tombstones, {m['n_live']} live of {m['n_base']} base): "
+          f"recall@{cfg.search.k}={m['mut_recall']:.3f} vs "
+          f"rebuilt={m['rebuilt_recall']:.3f} "
+          f"(gap={m['recall_gap']:+.3f}), "
+          f"deleted_in_results={m['deleted_in_results']}, "
+          f"frozen_parity={'OK' if m['parity'] else 'MISMATCH'}")
+    if m["ingest_offered"] > 0:
+        print(f"  ingest @{m['ingest_rate']:.0f} writes/s: "
+              f"{m['ingest_completed']}/{m['ingest_offered']} landed "
+              f"({m['ingest_rejected']} rejected), "
+              f"freshness_lag={m['freshness_lag_s']*1e3:.3f}ms "
+              f"p99={m['freshness_p99_s']*1e3:.3f}ms, "
+              f"read QPS under writes={m['sim_qps']:.0f}")
 
 
 def main(argv=None) -> dict:
@@ -226,6 +283,10 @@ def main(argv=None) -> dict:
     if cfg.exec.workers > 0:
         report["exec"] = dep.run_exec()
         print(json.dumps(report["exec"]))
+    if cfg.mutate.enabled or cfg.mutate.ingest_rate > 0:
+        report["mutate"] = dep.run_mutating()
+        print_mutating(cfg, report["mutate"])
+        print(json.dumps(report["mutate"]))
     return report
 
 

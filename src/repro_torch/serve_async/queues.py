@@ -119,6 +119,12 @@ class ThreadInbox:
                     return None
                 self._cv.wait()
 
+    def get(self):
+        """One baton as ``(kind, item)``, or ``None`` once stopped and
+        drained (``get_many(1)``)."""
+        got = self.get_many(1)
+        return None if got is None else got[0]
+
     def add_advance(self, n: int = 1) -> None:
         with self._cv:
             self.counters["advance_calls"] += n

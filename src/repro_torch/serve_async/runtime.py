@@ -24,7 +24,6 @@ import numpy as np
 import torch
 
 from repro_torch.core import pq
-from repro_torch.core.baton import _NOT_PORTED
 from repro_torch.core.beam_search import (
     Shard, seed_beam_fused, select_frontier, step_disk, step_disk_batched,
 )
@@ -40,15 +39,15 @@ LUT_BUILDS_COL = STAT_FIELDS.index("lut_builds")
 
 def partition_shard(index, part: int, sector_codes: bool = False) -> Shard:
     """The one-partition view of ``BatonIndex.stacked_shards``: row
-    ``part`` of the per-partition leaves as a stacked shard of one row
-    (views, no copy), the PQ codes and id maps replicated.  Callers read
-    its sectors as row 0."""
-    if sector_codes:
-        raise NotImplementedError(_NOT_PORTED["sector"])
-    return Shard(vectors=index.part_vectors[part:part + 1],
-                 neighbors=index.part_neighbors[part:part + 1],
-                 codes=index.codes, node2part=index.node2part,
-                 node2local=index.node2local)
+    ``part`` of the per-partition leaves (the sector layout's neighbour
+    codes too) as a stacked shard of one row (views, no copy), the PQ
+    codes (or their sector-layout placeholder) and id maps replicated.
+    Callers read its sectors as row 0."""
+    sh = index.stacked_shards(sector_codes=sector_codes)
+    rows = slice(part, part + 1)
+    return sh._replace(
+        vectors=sh.vectors[rows], neighbors=sh.neighbors[rows],
+        nbr_codes=None if sh.nbr_codes is None else sh.nbr_codes[rows])
 
 
 def _scalar(value, dtype, device) -> torch.Tensor:

@@ -104,6 +104,12 @@ class ExecRunResult:
     def throughput_qps(self) -> float:
         return self.completed / self.makespan_s if self.makespan_s > 0 else 0.0
 
+    def throughput_in(self, t0: float, t1: float) -> float:
+        """Completions per second inside the wall-clock window [t0, t1)."""
+        ok = ~np.isnan(self.done_s)
+        n = int(((self.done_s[ok] >= t0) & (self.done_s[ok] < t1)).sum())
+        return n / max(t1 - t0, 1e-9)
+
     def stats_dict(self) -> dict:
         return {f: self.stats[:, i] for i, f in enumerate(STAT_FIELDS)}
 

@@ -217,10 +217,12 @@ def test_presets_match_the_reference():
         got = dataclasses.asdict(tcfg.SERVE_CONFIGS[name])
         want = dataclasses.asdict(rcfg.SERVE_CONFIGS[name])
         assert got["search"].pop("lut_impl") == "einsum"   # port only
-        want.pop("mutate")                                  # not ported
-        assert got == want, name
+        assert got == want, name                            # mutate too
+    cfg = tcfg.SERVE_CONFIGS["batann-serve"].with_updates(
+        mutate={"insert_frac": 0.1, "l_insert": 64})
+    assert cfg.mutate == tcfg.MutateSpec(insert_frac=0.1, l_insert=64)
     with pytest.raises(KeyError, match="known"):
-        tcfg.SERVE_CONFIGS["batann-serve"].with_updates(mutate={})
+        tcfg.SERVE_CONFIGS["batann-serve"].with_updates(mutation={})
 
 
 def test_get_engine_works_as_the_reference():

@@ -173,3 +173,163 @@ def test_serve_cli_runs_on_the_host():
                          "mxu_tiled", "--merge-impl", "bitonic"])
     assert report["delivered"] == 1.0 and report["recall@10"] > 0.8
     assert report["qps"] > 0 and report["n_supersteps"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the lazy queue LUT and the sector layout (AiSAQ)
+#
+# Against the port's own resident / replicated run everything is bitwise.
+# Against the reference's run of the same mode ids, the five counters and
+# the traces are bitwise; distances are held at rtol 1e-5 (the exact L2
+# over d sums in another order than XLA's, as on the resident path).
+# ---------------------------------------------------------------------------
+
+def _assert_same_run(got, want, dists_rtol=None):
+    np.testing.assert_array_equal(got[0], want[0])
+    if dists_rtol is None:
+        np.testing.assert_array_equal(got[1], want[1])
+    else:
+        np.testing.assert_allclose(got[1], want[1], rtol=dists_rtol)
+    for f in STAT_FIELDS + ("trace",):
+        np.testing.assert_array_equal(got[2][f], want[2][f], f)
+    assert got[2]["n_supersteps"] == want[2]["n_supersteps"]
+
+
+LAZY_CASES = {
+    "fused einsum": dict(),
+    "per-slot": dict(fused=False),
+    "kernel routes, LUT kernel": dict(adc_impl="mxu_tiled",
+                                      merge_impl="bitonic",
+                                      lut_impl="kernel"),
+    "ship f16": dict(ship_lut=True, lut_wire_dtype="f16"),
+}
+
+
+@pytest.mark.parametrize("case", LAZY_CASES)
+def test_lazy_queue_lut_equals_resident(carried, dataset, case):
+    kw = LAZY_CASES[case]
+    want = tb.run_simulated(carried.index, dataset.queries,
+                            tb.BatonParams(**EQ, **kw))
+    got = tb.run_simulated(carried.index, dataset.queries,
+                           tb.BatonParams(**EQ, lazy_queue_lut=True, **kw))
+    _assert_same_run(got, want)
+    assert got[2]["delivered"] == 1.0
+
+
+def test_lazy_queue_lut_matches_reference(baton_index, carried, dataset):
+    want = rb.run_simulated(baton_index, dataset.queries,
+                            rb.BatonParams(**EQ, lazy_queue_lut=True))
+    got = tb.run_simulated(carried.index, dataset.queries,
+                           tb.BatonParams(**EQ, lazy_queue_lut=True))
+    _assert_same_run(got, want, dists_rtol=1e-5)
+
+
+def test_lazy_queue_lut_placeholder_bytes(carried):
+    """The (Q, M, K) queue array collapses to a (1, M, K) placeholder a
+    partition: the reference test's byte counts, per partition."""
+    q, d = 64, carried.index.dim
+    P = 2
+    args = (torch.zeros((P, q, d)), torch.arange(P * q).reshape(P, q),
+            torch.zeros((P, q, 4), dtype=torch.int32), torch.zeros((P, q, 4)))
+    cb = carried.index.codebook
+    eager = tb.init_device_state(*args, tb.BatonParams(**EQ), cb)
+    lazy = tb.init_device_state(
+        *args, tb.BatonParams(**EQ, lazy_queue_lut=True), cb)
+    m, k_pq = cb.shape[:2]
+    nbytes = lambda t: t.numel() * t.element_size()  # noqa: E731
+    assert nbytes(eager.queue_lut) == P * q * m * k_pq * 4
+    assert nbytes(lazy.queue_lut) == P * m * k_pq * 4
+    assert tuple(lazy.queue_lut.shape) == (P, 1, m, k_pq)
+
+
+@pytest.fixture(scope="module")
+def sector_ref(dataset, graph):
+    return rb.build_index(dataset.vectors, p=4, pq_m=16, pq_k=128,
+                          head_fraction=0.03, seed=0, graph=graph,
+                          codes_mode="sector")
+
+
+@pytest.fixture(scope="module")
+def sector_carried(sector_ref):
+    eng = BatonEngine(device="cpu")
+    eng.load_index(*RefEngine(sector_ref).index_state())
+    return eng
+
+
+def test_sector_layout_matches_reference(sector_ref, sector_carried,
+                                         baton_index, dataset, graph,
+                                         carried):
+    """The port's layout function on the reference's codes and sectors is
+    the reference's ``part_nbr_codes``; the port's own sector build keeps
+    its replicated build's codes and lays them out the same way."""
+    idx = sector_carried.index
+    np.testing.assert_array_equal(
+        tb.sector_codes(idx.codes, idx.part_neighbors).numpy(),
+        sector_ref.part_nbr_codes)
+    np.testing.assert_array_equal(idx.part_nbr_codes.numpy(),
+                                  sector_ref.part_nbr_codes)
+    np.testing.assert_array_equal(sector_ref.codes, baton_index.codes)
+    g = tb.vamana.VamanaGraph(neighbors=torch.tensor(graph.neighbors),
+                              medoid=graph.medoid, R=graph.R,
+                              L_build=graph.L_build, alpha=graph.alpha)
+    kw = dict(p=4, pq_m=16, pq_k=128, head_fraction=0.03, seed=0, graph=g,
+              assign=baton_index.assign, device="cpu")
+    rep = tb.build_index(dataset.vectors, **kw)
+    sec = tb.build_index(dataset.vectors, codes_mode="sector", **kw)
+    np.testing.assert_array_equal(sec.codes.numpy(), rep.codes.numpy())
+    np.testing.assert_array_equal(sec.codebook.numpy(),
+                                  rep.codebook.numpy())
+    n = sec.n
+    want = sec.codes.numpy()[np.clip(sec.part_neighbors.numpy(), 0, n - 1)]
+    np.testing.assert_array_equal(sec.part_nbr_codes.numpy(), want)
+    assert rep.part_nbr_codes is None
+    with pytest.raises(ValueError, match="codes_mode"):
+        tb.build_index(dataset.vectors, codes_mode="sectors", **kw)
+
+
+SECTOR_CASES = {
+    "gather": dict(),
+    "per-slot": dict(fused=False),
+    "slot-ADC kernel": dict(adc_impl="mxu_tiled", merge_impl="bitonic"),
+    "dense ADC kernel": dict(adc_impl="mxu", merge_impl="bitonic"),
+}
+
+
+@pytest.mark.parametrize("case", SECTOR_CASES)
+def test_sector_codes_equal_replicated(carried, sector_carried, dataset,
+                                       case):
+    kw = SECTOR_CASES[case]
+    want = tb.run_simulated(carried.index, dataset.queries,
+                            tb.BatonParams(**EQ, **kw))
+    got = tb.run_simulated(sector_carried.index, dataset.queries,
+                           tb.BatonParams(**EQ, **kw), sector_codes=True)
+    _assert_same_run(got, want)
+
+
+def test_sector_codes_match_reference(sector_ref, sector_carried, dataset):
+    want = rb.run_simulated(sector_ref, dataset.queries,
+                            rb.BatonParams(**EQ), sector_codes=True)
+    got = tb.run_simulated(sector_carried.index, dataset.queries,
+                           tb.BatonParams(**EQ), sector_codes=True)
+    _assert_same_run(got, want, dists_rtol=1e-5)
+    # the engine searches the sector layout it holds
+    res = sector_carried.search(dataset.queries, SearchParams(
+        L=32, W=8, pool=128, slots=16, adc_impl="mxu_tiled",
+        merge_impl="bitonic"))
+    np.testing.assert_array_equal(res.ids, got[0])
+
+
+def test_sector_shard_never_reads_the_placeholder(sector_carried):
+    """The sector shard's replicated codes are a (1, M) placeholder; a
+    candidate-code gather from it (no sector codes given) raises instead of
+    returning row 0 for every candidate."""
+    from repro_torch.core.beam_search import candidate_codes
+
+    shard = sector_carried.index.stacked_shards(sector_codes=True)
+    assert tuple(shard.codes.shape) == (1, sector_carried.index.codes.shape[1])
+    cand = torch.zeros((2, 5), dtype=torch.int32)
+    with pytest.raises(ValueError, match="nbr_codes"):
+        candidate_codes(shard, cand, None)
+    with pytest.raises(ValueError, match="codes_mode='sector'"):
+        dataclasses.replace(sector_carried.index, part_nbr_codes=None) \
+            .stacked_shards(sector_codes=True)

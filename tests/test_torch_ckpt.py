@@ -7,8 +7,11 @@
   as the loading package answers on the original index (the port ->
   reference direction passes ``config=``: the port's search section holds
   ``lut_impl``, which the reference's lacks);
+* a sector-layout index (``codes_mode="sector"``) saved by either package
+  answers bitwise in the other, under the same ``index_key``;
 * ``ServeConfig.index_key`` is equal across the packages; the JSON round
-  trip holds; a non-default ``mutate`` section raises;
+  trip holds, a non-default ``mutate`` section included (unknown fields
+  raise);
 * a crash before the commit leaves the previous ``LATEST``;
 * ``Deployment.from_config(index_cache=...)`` builds once and then loads;
 * the launcher's ``--send-rate`` and ``--index-cache`` on ``--device cpu``.
@@ -186,10 +189,18 @@ def test_json_round_trip_and_reference_dicts():
     ("insert_frac", 0.1), ("delete_frac", 0.2), ("consolidate", False),
     ("ingest_rate", 10.0), ("seed", 3)])
 def test_non_default_mutate_section_raises(field, value):
-    d = get_serve_config("batann-serve").to_dict()
+    """A reference dict's non-default ``mutate`` section loads (the round
+    trip holds in both packages); an unknown field still raises."""
+    ref = get_serve_config("batann-serve").with_updates(
+        sim={"send_rate": 100.0})
+    d = ref.to_dict()
     d["mutate"][field] = value
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tcfg.ServeConfig.from_dict(d)
+    got = tcfg.ServeConfig.from_dict(d)
+    want = type(ref).from_dict(d)
+    assert getattr(got.mutate, field) == value
+    assert dataclasses.asdict(got.mutate) == dataclasses.asdict(want.mutate)
+    assert tcfg.ServeConfig.from_json(got.to_json()) == got
+    assert got.mutate.enabled == want.mutate.enabled
     d["mutate"] = {"bogus": 1}
     with pytest.raises(TypeError, match="bogus"):
         tcfg.ServeConfig.from_dict(d)
@@ -284,3 +295,45 @@ def test_serve_cli_simulates_and_caches(tmp_path, capsys):
         serve.build_argparser().parse_args(argv)).sim) == dataclasses.asdict(
         tcfg.SimSpec(send_rate=300.0, n_arrivals=60,
                      faults="0.05:crash:1,0.08:recover:1", retry=2))
+
+
+@pytest.fixture(scope="module")
+def sector_deps(deps):
+    """(reference Deployment, port Deployment) over one sector-layout
+    index: the port builds it on the CPU, the reference's engine loads it."""
+    over = dict(OVERRIDES, index={**OVERRIDES["index"],
+                                  "codes_mode": "sector"})
+    rc = get_serve_config("batann-serve-smoke").with_updates(**over)
+    tc = tcfg.SERVE_CONFIGS["batann-serve-smoke"].with_updates(**over)
+    ds = deps["baton"][1].dataset
+    t = tdep.Deployment.from_config(tc, dataset=ds, device="cpu")
+    assert t.index.part_nbr_codes is not None
+    r_eng = rapi.get_engine("baton")
+    r_eng.load_index(*t.engine.index_state())
+    return rapi.Deployment.from_parts(rc, r_eng, ds), t
+
+
+@pytest.mark.parametrize("writer", ["port", "reference"])
+def test_sector_index_persists_across_packages(sector_deps, writer,
+                                               tmp_path):
+    """A sector index saved by one package loads in the other with its
+    ``part_nbr_codes`` and answers bitwise as the loading package answers
+    on the original; ``index_key`` is the same in both."""
+    r, t = sector_deps
+    assert r.config.index_key() == t.config.index_key()
+    d = str(tmp_path / "idx")
+    q = t.dataset.queries
+    if writer == "port":
+        t.save(d)
+        loaded = rapi.Deployment.load(d, config=r.config, dataset=r.dataset)
+        np.testing.assert_array_equal(loaded.index.part_nbr_codes,
+                                      r.index.part_nbr_codes)
+        _same_answers(loaded.search(q), r.search(q))
+    else:
+        r.save(d)
+        loaded = tdep.Deployment.load(d, dataset=t.dataset, device="cpu")
+        assert loaded.config == t.config
+        np.testing.assert_array_equal(loaded.index.part_nbr_codes.numpy(),
+                                      t.index.part_nbr_codes.numpy())
+        _same_answers(loaded.search(q), t.search(q))
+    assert _manifest(d)["extra"]["index_key"] == t.config.index_key()

@@ -301,3 +301,78 @@ def test_search_params_lut_impl_validation():
         tb.BatonParams(lut_impl="dense")
     assert BatonEngine(device="cpu").baton_params(
         dataclasses.replace(SP, lut_impl="kernel")).lut_impl == "kernel"
+
+
+# ---------------------------------------------------------------------------
+# the sector layout through the tier; ThreadInbox.get; throughput_in
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def sector_pair(baton_index):
+    """(reference index, port engine) in the sector layout, laid out by the
+    reference's formula over the conftest index's codes."""
+    n = baton_index.n
+    ref_idx = dataclasses.replace(
+        baton_index, part_nbr_codes=baton_index.codes[
+            np.clip(baton_index.part_neighbors, 0, n - 1)])
+    eng = BatonEngine(device="cpu")
+    eng.load_index(*RefEngine(ref_idx).index_state())
+    return ref_idx, eng
+
+
+def test_sector_tier_matches_reference_tier(sector_pair, cfg, dataset):
+    ref_idx, eng = sector_pair
+    r_cfg = rb.BatonParams(**{f.name: getattr(cfg, f.name)
+                              for f in dataclasses.fields(rb.BatonParams)})
+    queries = dataset.queries[:16]
+    with RefTier(ref_idx, r_cfg, n_workers=2, batch=4) as tier:
+        want = tier.search(queries)
+    with AsyncServingTier(eng.index, cfg, n_workers=2, batch=4) as tier:
+        assert all(s.nbr_codes is not None for s in tier._shards.values())
+        res = tier.search(queries)
+    np.testing.assert_array_equal(res.ids, want.ids)
+    np.testing.assert_allclose(res.dists, want.dists, rtol=1e-5)
+    np.testing.assert_array_equal(res.stats, want.stats)
+    assert res.wire_bytes_per_handoff == want.wire_bytes_per_handoff
+    # (frames coalesce by thread timing, so only per-baton sizes compare)
+    assert res.handoffs == want.handoffs
+    assert res.wire_batons == want.wire_batons
+    _assert_parity(res, eng.search(queries, SP))
+
+
+def test_inbox_get_equals_reference():
+    from repro.serve_async.queues import ThreadInbox as RefInbox
+
+    got = []
+    for ib in (ThreadInbox(slots=4, admit_headroom=2, queue_cap=8),
+               RefInbox(slots=4, admit_headroom=2, queue_cap=8)):
+        for i in range(3):
+            ib.offer_admit(("q", i))
+        ib.push_handoff(("frame", "f"), n=1, nbytes=10)
+        out = [ib.get(), ib.get()]
+        ib.push_handoff(("local", "l"), n=1, local=True)
+        ib.stop()
+        out += [ib.get(), ib.get()]
+        got.append(out)
+    assert got[0] == got[1]
+    assert got[0] == [("handoff", ("frame", "f")), ("admit", ("q", 0)),
+                      ("handoff", ("local", "l")), None]
+
+
+def test_throughput_in_equals_reference(engine, cfg, dataset):
+    from repro.serve_async.tier import ExecRunResult as RefResult
+
+    with AsyncServingTier(engine.index, cfg, n_workers=2, slots=4,
+                          queue_cap=2) as tier:
+        wl = make_workload(len(dataset.queries), 20000.0, 96, "poisson",
+                           seed=2)
+        res = tier.serve(dataset.queries, wl)
+    assert res.rejected > 0 or res.completed == res.offered
+    span = res.makespan_s
+    for t0, t1 in [(0.0, span + 1e-6), (0.0, span / 2), (span / 3, span),
+                   (span, span)]:
+        assert res.throughput_in(t0, t1) == RefResult.throughput_in(
+            res, t0, t1)
+    assert res.throughput_in(0.0, span + 1e-6) == pytest.approx(
+        res.completed / (span + 1e-6))

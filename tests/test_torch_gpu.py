@@ -392,3 +392,77 @@ def test_deployment_runs_three_engines_on_card(cuda):
     assert reps["baton"].recall > 0.8 and reps["scatter_gather"].recall > 0.8
     assert reps["scatter_gather"].counters["reads"] > \
         reps["baton"].counters["reads"]
+
+
+@pytest.mark.gpu
+def test_lazy_lut_and_sector_layout_on_card(cuda):
+    """A small index on the card: the lazy queue LUT (LUT kernel) and the
+    sector layout (slot-ADC and dense routes, and through the tier) answer
+    bitwise as the resident, replicated index does."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.api.engine import BatonEngine
+    from repro_torch.configs.batann_serve import IndexSpec, SearchParams
+    from repro_torch.data import synth
+    from repro_torch.serve_async import AsyncServingTier
+
+    def same(a, b):
+        return (np.array_equal(a.ids, b.ids)
+                and np.array_equal(a.dists, b.dists)
+                and all(np.array_equal(a.stats[f], b.stats[f]) for f in
+                        ("hops", "inter_hops", "dist_comps", "reads",
+                         "lut_builds", "trace")))
+
+    ds = synth.make_dataset("deep", n=3000, n_queries=64, seed=2,
+                            compute_gt_k=0, device="cuda")
+    spec = IndexSpec(p=4, r=24, pq_m=24, pq_k=256)
+    eng = BatonEngine(device="cuda")
+    eng.build(ds, spec)
+    sp = SearchParams(L=32, W=4, pool=128, slots=16, adc_impl="mxu_tiled",
+                      merge_impl="bitonic", lut_impl="kernel")
+    resident = eng.search(ds.queries, sp)
+    kernels.reset_launch_counts()
+    lazy = eng.search(ds.queries, dataclasses.replace(sp,
+                                                      lazy_queue_lut=True))
+    assert kernels.launch_counts()["pq_lut"] > 0
+    assert same(lazy, resident)
+    sec = BatonEngine(device="cuda")
+    sec.build(ds, dataclasses.replace(spec, codes_mode="sector"),
+              graph=eng.index.graph, assign=eng.index.assign)
+    assert torch.equal(sec.index.codes, eng.index.codes)
+    assert same(sec.search(ds.queries, sp), resident)
+    dense = dataclasses.replace(sp, adc_impl="mxu")
+    want = eng.search(ds.queries, dense)
+    assert same(sec.search(ds.queries, dense), want)
+    with AsyncServingTier(sec.index, sec.baton_params(dense), n_workers=2,
+                          batch=4) as tier:
+        res = tier.search(ds.queries)
+    assert np.array_equal(res.ids, want.ids)
+    assert np.array_equal(res.dists, want.dists)
+
+
+@pytest.mark.gpu
+def test_run_mutating_on_card(cuda):
+    """``Deployment.run_mutating`` on the card with the fig22 mix at a small
+    n: the parity pin holds, no deleted id comes back, the live count adds
+    up, recall stays within the tolerance of a rebuild, ingest is
+    conserved."""
+    from repro_torch.api.deployment import MUTATE_FIELDS, Deployment
+    from repro_torch.configs.batann_serve import SERVE_CONFIGS
+
+    cfg = SERVE_CONFIGS["batann-serve-smoke"].with_updates(
+        data={"n": 4000, "n_queries": 64},
+        search={"adc_impl": "mxu_tiled", "merge_impl": "bitonic"},
+        sim={"send_rate": 2000.0, "n_arrivals": 300},
+        mutate={"insert_frac": 0.1, "delete_frac": 0.05, "l_insert": 64,
+                "ingest_rate": 500.0, "recall_tol": 0.1})
+    dep = Deployment.from_config(cfg, device="cuda")
+    m = dep.run_mutating()
+    assert tuple(m) == MUTATE_FIELDS
+    assert m["parity"] and m["deleted_in_results"] == 0
+    assert m["n_live"] == m["n_base"] + m["n_inserted"] - m["n_deleted"]
+    assert m["mut_recall"] >= m["rebuilt_recall"] - 0.1
+    assert m["ingest_offered"] == m["ingest_completed"] + m["ingest_rejected"]

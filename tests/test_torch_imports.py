@@ -3,8 +3,11 @@
 * ``src/repro_torch`` and ``chip_smoke.py`` import neither JAX nor the
   reference package (AST scan);
 * asking for CUDA without a card raises — nothing falls back to the CPU;
-* modes the port does not carry yet raise ``NotImplementedError`` naming
-  their ROADMAP item.
+* modes the port does not carry yet (the tier's process mode) raise
+  ``NotImplementedError`` naming their ROADMAP item; the modes carried
+  since (the lazy queue LUT, the sector layout) refuse only what the
+  reference refuses (a lazy refill without the codebook, a sector shard of
+  an index built without sector codes).
 """
 
 import ast
@@ -103,11 +106,23 @@ def test_env_record_names_what_is_missing(no_cuda, monkeypatch):
 @pytest.mark.parametrize("kw", [dict(lazy_queue_lut=True),
                                 dict(lazy_queue_lut=True, fused=False)])
 def test_modes_not_carried_raise(kw):
-    """The lazy queue LUT raises on the fused and the per-slot path alike
-    (the per-slot path itself is carried)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        baton.BatonParams(**kw)
-    assert not baton.BatonParams(fused=False).fused
+    """The lazy queue LUT is carried on the fused and the per-slot path
+    alike: the queue keeps a (P, 1, M, K) placeholder, and a refill without
+    the codebook to build the LUTs from raises."""
+    cfg = baton.BatonParams(**kw)
+    assert cfg.lazy_queue_lut and cfg.fused == kw.get("fused", True)
+    P, Q, d, m, k = 2, 3, 8, 2, 4
+    cb = torch.zeros((m, k, d // m))
+    dev = baton.init_device_state(
+        torch.zeros((P, Q, d)), torch.arange(P * Q).reshape(P, Q),
+        torch.zeros((P, Q, 4), dtype=torch.int32), torch.zeros((P, Q, 4)),
+        cfg, cb)
+    assert tuple(dev.queue_lut.shape) == (P, 1, m, k)
+    parts = torch.arange(P, dtype=torch.int32)
+    with pytest.raises(ValueError, match="codebook"):
+        baton.refill(dev, cfg, parts)
+    seeded = baton.refill(dev, cfg, parts, codebook=cb)
+    assert tuple(seeded.states.lut.shape) == (P, cfg.slots, m, k)
 
 
 def test_dense_adc_route_is_carried():
@@ -124,23 +139,36 @@ def test_exec_process_mode_raises():
         ProcessInbox()
 
 
+def _tiny(codes_mode="replicated", partitioner="ldg"):
+    v = np.random.default_rng(0).normal(size=(80, 8)).astype(np.float32)
+    return v, baton.build_index(
+        v, p=2, partitioner=partitioner, pq_m=4, pq_k=8, device="cpu",
+        codes_mode=codes_mode,
+        graph=baton.vamana.build(v, r=4, l_build=8, device="cpu"))
+
+
 def test_partition_shard_sector_codes_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        runtime.partition_shard(None, 0, sector_codes=True)
+    """A sector shard of a replicated index raises; of a sector index it is
+    row ``part`` of the sector codes beside a (1, M) placeholder."""
+    _, rep = _tiny()
+    with pytest.raises(ValueError, match="codes_mode='sector'"):
+        runtime.partition_shard(rep, 0, sector_codes=True)
+    _, sec = _tiny("sector")
+    shard = runtime.partition_shard(sec, 1, sector_codes=True)
+    assert torch.equal(shard.nbr_codes[0], sec.part_nbr_codes[1])
+    assert tuple(shard.codes.shape) == (1, 4)
+    assert runtime.partition_shard(sec, 1).nbr_codes is None
 
 
 def test_sector_codes_and_kmeans_raise():
-    """Sector codes raise naming their ROADMAP item; ``partitioner="kmeans"``
-    is carried now and builds with the balanced k-means assignment."""
-    v = np.random.default_rng(0).normal(size=(80, 8)).astype(np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        baton.build_index(v, p=2, codes_mode="sector", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BatonEngine(device="cpu").load_index(
-            {"part_nbr_codes": np.zeros((1, 1, 1, 1), np.uint8)}, {})
-    idx = baton.build_index(v, p=2, partitioner="kmeans", pq_m=4, pq_k=8,
-                            device="cpu",
-                            graph=baton.vamana.build(v, r=4, l_build=8,
-                                                     device="cpu"))
+    """Sector codes build and load (an unknown ``codes_mode`` raises);
+    ``partitioner="kmeans"`` builds with the balanced k-means assignment."""
+    v, sec = _tiny("sector")
+    with pytest.raises(ValueError, match="codes_mode"):
+        baton.build_index(v, p=2, codes_mode="aisaq", device="cpu")
+    tree, meta = BatonEngine(device="cpu").attach(sec).index_state()
+    back = BatonEngine(device="cpu").load_index(tree, meta)
+    assert torch.equal(back.part_nbr_codes, sec.part_nbr_codes)
+    _, idx = _tiny(partitioner="kmeans")
     np.testing.assert_array_equal(
         idx.assign, baton.part_mod.balanced_kmeans(v, 2, seed=0))
