@@ -119,13 +119,41 @@ Phases (any failure exits non-zero; nothing is swallowed):
     n_inserted - n_deleted``, ``mut_recall >= rebuilt_recall - 0.10``,
     ingest conserved, exactly ``MUTATE_FIELDS``, and the slot-ADC and
     top-k kernels launched in the mutated search; prints every field and
-    each stage's seconds.
+    each stage's seconds;
+17. the executable tier in process mode: ``AsyncServingTier(mode=
+    "process")`` with 4 spawned worker processes (each its own CUDA
+    context on the card) over the P = 8 partitions, micro-batch 8, phase
+    8's params, closed loop over batch 1: every query completed, answers
+    bitwise equal to phase 7, ``handoffs == wire_batons +
+    local_handoffs``, and ``pq_adc``, ``pq_lut`` and ``bitonic_topk``
+    launched in the children (the counts they send back when the tier
+    closes); prints start-up seconds, throughput, latency percentiles,
+    per-worker host syncs and the card's busy share (``nvidia-smi``
+    utilization, sampled every 100 ms) beside phase 8's thread-mode
+    numbers; then the einsum slot-ADC route over the first 256 queries
+    against phase 5 (a finding, beside phase 8's ``[tier einsum]`` line),
+    where ``pq_adc_slots`` must launch in the children;
+18. SPMD: phase 4's index saved with ``Deployment.save``, then
+    ``launch/spmd.py`` with 8 ranks on the one card (one partition each,
+    gloo over loopback TCP, each rank loading only its partition's
+    sectors) over batch 1 on ``mxu_tiled``/``bitonic``/LUT kernel: ids,
+    dists, five counters, traces and ``n_supersteps`` bitwise equal to the
+    same batch through ``run_simulated`` (phase 7's ``mxu_tiled`` run),
+    ``delivered == 1.0``, and ``pq_adc_slots``, ``bitonic_topk`` and
+    ``pq_lut`` launched in every rank; prints the wall time (spawning
+    included), each rank's run and load seconds and host syncs, and QPS,
+    beside ``run_simulated``'s; the same ranks (one spawn) then run the
+    einsum LUT against phase 5, whose differing ids are a finding.
 
 Kernel launch counts are set to 0 just before each path runs and read just
 after: the slot ADC and the top-k on phase 5, the dense ADC and the LUT
 kernel on phase 8 (the tier), each of which must have launched; and the
 slot ADC on the tier's einsum run (its micro-batches of S <= 8); the slot
-ADC and the top-k on phase 11's scatter-gather kernel route.  The line
+ADC and the top-k on phase 11's scatter-gather kernel route; the dense
+ADC, the LUT kernel and the top-k in the worker processes of phase 17 and
+the slot ADC in those of its einsum run (counted in the children, sent
+back at close); the slot ADC, the top-k and the LUT kernel in every rank
+of phase 18 (counted in each rank after its warm-up).  The line
 before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result, when
 no CUDA device is visible or the ``repro_torch`` package is not beside it.
@@ -1038,6 +1066,175 @@ def mutate_phase(torch, eng, ds, cfg, queries) -> None:
     log(f"[mutate] phase 16 took {time.perf_counter() - t_phase:.1f} s")
 
 
+def busy_start():
+    """Sample the card's utilization (the share of time a kernel ran, all
+    processes) every 100 ms until :func:`busy_stop`."""
+    return subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=utilization.gpu",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+
+
+def busy_stop(proc) -> str:
+    """Stop the sampler; its mean as text, or "not measured"."""
+    proc.terminate()
+    out = proc.communicate(timeout=30)[0]
+    vals = [float(v) for v in out.split() if v.replace(".", "", 1).isdigit()]
+    if not vals:
+        return "card busy not measured (nvidia-smi gave no samples)"
+    return (f"card busy {statistics.fmean(vals):.1f}% (nvidia-smi "
+            f"utilization.gpu, mean of {len(vals)} samples at 100 ms)")
+
+
+def process_phase(eng, queries, mxu, mxu_sp, kernel_sp, kern, thread,
+                  einsum_thread) -> None:
+    """Phase 17: the tier with worker processes, against phase 7 (bitwise)
+    and beside phase 8's thread-mode numbers."""
+    from repro_torch import kernels
+    from repro_torch.serve_async import AsyncServingTier
+
+    t_phase = time.perf_counter()
+    ms = lambda v: f"{v * 1e3:.2f}"  # noqa: E731
+    kernels.reset_launch_counts()
+    tier = AsyncServingTier(eng.index, eng.baton_params(mxu_sp), n_workers=4,
+                            batch=8, mode="process")
+    try:
+        up = lambda key: [round(w[key], 2) for w in tier.worker_startup]  # noqa: E731,E501
+        log(f"[proc] 4 worker processes over P=8, batch 8: start-up "
+            f"{tier.startup_s:.2f} s; per worker: spawn to entry s "
+            f"{up('start_s')}, CUDA context, shards and libraries s "
+            f"{up('load_s')}, warm-up s {up('warm_s')}")
+        sampler = busy_start()
+        try:
+            closed = tier.search(queries)
+        finally:
+            busy = busy_stop(sampler)
+    finally:
+        tier.close()
+    if any(w.is_alive() for w in tier._workers):
+        raise AssertionError("a worker process outlived close()")
+    parent, child = kernels.launch_counts(), tier.child_launch_counts()
+    log(tier_line("proc closed", closed, {k: parent[k] + child[k]
+                                          for k in parent})
+        + f"; in the children {child}, in this process {parent}; {busy}")
+    if closed.completed != len(queries):
+        raise AssertionError(f"process mode completed {closed.completed}")
+    if not tier_parity(closed, mxu):
+        raise AssertionError("process mode answers differ from the "
+                             "engine's (phase 7)")
+    if closed.handoffs != closed.wire_batons + closed.local_handoffs:
+        raise AssertionError("process mode lost a hand-off")
+    for name in ("pq_adc", "pq_lut", "bitonic_topk"):
+        if child[name] == 0:
+            raise AssertionError(f"kernel {name} was never launched in the "
+                                 f"worker processes")
+    log(f"[proc closed] answers bitwise equal to the engine's (phase 7); "
+        f"handoffs == wire_batons + local_handoffs; per-worker host syncs "
+        f"{[m.count for m in tier.meters]} ({[round(m.seconds, 3) for m in tier.meters]} s blocked)")
+    log(f"[proc vs thread] throughput {closed.throughput_qps:.1f} QPS "
+        f"against {thread['res'].throughput_qps:.1f}; latency ms p50 "
+        f"{ms(closed.percentile_s(50))} against "
+        f"{ms(thread['res'].percentile_s(50))}, p99 "
+        f"{ms(closed.percentile_s(99))} against "
+        f"{ms(thread['res'].percentile_s(99))}; host syncs "
+        f"{closed.host_syncs} against {thread['res'].host_syncs}; "
+        f"process mode: {busy}; thread mode: {thread['busy']}")
+
+    tier_e = AsyncServingTier(eng.index, eng.baton_params(kernel_sp),
+                              n_workers=4, batch=8, mode="process")
+    try:
+        einsum_res = tier_e.search(queries[:256])
+    finally:
+        tier_e.close()
+    child = tier_e.child_launch_counts()
+    if child["pq_adc_slots"] == 0:
+        raise AssertionError("the slot-ADC route never launched "
+                             "pq_adc_slots in the worker processes")
+    log(f"[proc einsum] the einsum LUT (mxu_tiled/bitonic), first 256 "
+        f"queries, against phase 5: parity {tier_parity(einsum_res, kern)}, "
+        f"{int((einsum_res.ids != kern.ids[:256]).sum())} ids and "
+        f"{int((einsum_res.dists != kern.dists[:256]).sum())} dists differ "
+        f"(thread mode, phase 8: "
+        f"{int((einsum_thread.ids != kern.ids[:256]).sum())} ids); "
+        f"throughput {einsum_res.throughput_qps:.1f} QPS against "
+        f"{einsum_thread.throughput_qps:.1f}; launches in the children "
+        f"{child}")
+    log(f"[proc] phase 17 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def spmd_phase(cfg, eng, queries, tiled_lut, tiled_lut_sp, kernel_sp,
+               kern) -> None:
+    """Phase 18: the SPMD driver, 8 ranks on the one card over gloo,
+    bitwise against ``run_simulated`` on the LUT-kernel route."""
+    import shutil
+    import tempfile
+
+    from repro_torch.api.deployment import Deployment
+    from repro_torch.launch import spmd
+
+    t_phase = time.perf_counter()
+    build_dir = os.path.join(ROOT, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    root = tempfile.mkdtemp(dir=build_dir, prefix="spmd_smoke_")
+    P = eng.index.p
+    try:
+        t0 = time.perf_counter()
+        Deployment.from_parts(cfg.with_updates(index={"engine": "baton"}),
+                              eng).save(root)
+        t_save = time.perf_counter() - t0
+        # both LUT routes from one spawn of the ranks
+        (ids, dists, st), (e_ids, e_dists, e_st) = spmd.search(
+            root, queries, [eng.baton_params(tiled_lut_sp),
+                            eng.baton_params(kernel_sp)], world=P)
+        ranks = st["ranks"]
+        same = (ids.tobytes() == tiled_lut.ids.tobytes()
+                and dists.tobytes() == tiled_lut.dists.tobytes()
+                and all((st[f] == tiled_lut.stats[f]).all()
+                        for f in STAT_KEYS)
+                and np.array_equal(st["trace"], tiled_lut.stats["trace"])
+                and st["n_supersteps"] == tiled_lut.stats["n_supersteps"])
+        if not same:
+            raise AssertionError("SPMD (LUT kernel) differs from "
+                                 "run_simulated")
+        if st["delivered"] != 1.0:
+            raise AssertionError(f"SPMD delivered {st['delivered']}")
+        for r in ranks:
+            for name in ("pq_adc_slots", "bitonic_topk", "pq_lut"):
+                if r["launches"][name] == 0:
+                    raise AssertionError(f"rank {r['rank']} never launched "
+                                         f"{name}")
+        run_s = max(r["run_s"] for r in ranks)
+        rnd = lambda key: [round(r[key], 2) for r in ranks]  # noqa: E731
+        log(f"[spmd] {P} ranks on {ranks[0]['device']}..{ranks[-1]['device']}"
+            f" over gloo, batch 1 on mxu_tiled/bitonic/LUT kernel: ids, "
+            f"dists, five counters, traces and n_supersteps "
+            f"({st['n_supersteps']}) bitwise equal to run_simulated, "
+            f"delivered {st['delivered']}; index saved in {t_save:.2f} s")
+        log(f"[spmd] wall {st['wall_s']:.2f} s for both LUT routes (spawn, "
+            f"load, warm-ups included); per rank: spawn to group s "
+            f"{rnd('start_s')}, load s {rnd('load_s')}, warm-up s "
+            f"{rnd('warm_s')}, run s {rnd('run_s')}")
+        log(f"[spmd] run {run_s:.3f} s (slowest rank): QPS "
+            f"{len(queries) / run_s:.1f} against run_simulated's "
+            f"{len(queries) / tiled_lut.wall_s:.1f} ({tiled_lut.wall_s:.3f}"
+            f" s); host syncs per rank "
+            f"{[r['host_syncs'] for r in ranks]} against "
+            f"{tiled_lut.stats['host_syncs']}; seconds blocked "
+            f"{[round(r['host_sync_s'], 3) for r in ranks]}; launches rank 0 "
+            f"{ranks[0]['launches']}, summed "
+            f"{ {k: sum(r['launches'][k] for r in ranks) for k in ranks[0]['launches']} }")
+        log(f"[spmd einsum] the einsum LUT through {P} ranks against phase "
+            f"5: {int((e_ids != kern.ids).sum())} of {kern.ids.size} ids "
+            f"and {int((e_dists != kern.dists).sum())} dists differ; five "
+            f"counters equal "
+            f"{all((e_st[f] == kern.stats[f]).all() for f in STAT_KEYS)}; "
+            f"delivered {e_st['delivered']}; run "
+            f"{max(r['run_s'] for r in e_st['ranks']):.3f} s (slowest rank)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[spmd] phase 18 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=1_000_000)
@@ -1220,9 +1417,13 @@ def main(argv=None) -> int:
         log(f"[tier] 4 worker threads over P=8, batch 8; warm-up "
             f"{time.perf_counter() - t0:.2f} s")
         kernels.reset_launch_counts()
-        closed = tier.search(batches[1])
+        sampler = busy_start()
+        try:
+            closed = tier.search(batches[1])
+        finally:
+            busy = busy_stop(sampler)
         tier_launches = kernels.launch_counts()
-        log(tier_line("tier closed", closed, tier_launches))
+        log(tier_line("tier closed", closed, tier_launches) + f"; {busy}")
         if closed.completed != len(batches[1]):
             raise AssertionError(f"closed loop completed {closed.completed}")
         if not tier_parity(closed, mxu):
@@ -1292,6 +1493,11 @@ def main(argv=None) -> int:
                  kernel_sp, mxu_sp)
     # --- 16. live mutation ------------------------------------------------------
     mutate_phase(torch, eng, ds, cfg, batches[1])
+    # --- 17. the executable tier in process mode --------------------------------
+    process_phase(eng, batches[1], mxu, mxu_sp, kernel_sp, kern,
+                  {"res": closed, "busy": busy}, einsum_res)
+    # --- 18. SPMD: one rank a partition over gloo ------------------------------
+    spmd_phase(cfg, eng, batches[1], tiled_lut, tiled_lut_sp, kernel_sp, kern)
 
     if args.profile:
         profile_batch(torch, eng, batches[1], kernel_sp, args.profile)

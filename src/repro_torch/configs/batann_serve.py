@@ -162,8 +162,8 @@ class ExecSpec:
     ``search.slots``); ``time_scale`` stretches the schedule's wall clock.
     ``batch`` is the per-worker micro-batch: each loop iteration drains up
     to that many batons and advances each same-partition group in one call
-    (``runtime.advance_batch``).  ``mode="process"`` is a valid setting
-    whose tier is not ported yet: the tier raises on it.
+    (``runtime.advance_batch``).  ``mode`` picks the workers: threads of
+    the serving process, or processes from a spawn context.
     """
 
     workers: int = 0

@@ -20,6 +20,14 @@ Super-steps, as in the reference:
 4. ``plan_routes`` -> ``grant_matrix`` -> ``pack_sends`` -> the all_to_all
    (a transpose of the (src, dst) axes) -> ``merge_recv``.
 
+``run_simulated`` is the single-card driver.  ``run_spmd`` is the
+reference's SPMD execution (``make_spmd_fn`` under ``shard_map``): one
+partition per ``torch.distributed`` rank, the same phases over a leading
+partition axis of size 1, the all_gather of want/free and the all_to_all
+of the send and result buffers as real collectives.  The collectives run
+over gloo on host tensors (one card cannot host two NCCL ranks), so each
+is staged through the host and counts as one sync.
+
 Every loop condition and every scatter that the reference writes with
 ``mode="drop"`` costs one device->host sync here (a loop flag, or the
 ``nonzero`` of an explicit in-range filter before ``index_put``); a
@@ -39,6 +47,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.core import head_index, partition as part_mod, pq, vamana
@@ -397,7 +406,8 @@ def _frontier_ownership(st: QueryState, shard: Shard, cfg: BatonParams,
 
 
 def local_advance(dev: DeviceState, shard: Shard, cfg: BatonParams,
-                  my_part: torch.Tensor, meter: SyncMeter):
+                  my_part: torch.Tensor, meter: SyncMeter,
+                  shard_rows: "torch.Tensor | None" = None):
     """Inner loop: explore local frontier nodes until every resident state
     is blocked on remote data or done (Alg. 2 lines 2-3, SIMD over slots).
 
@@ -406,11 +416,14 @@ def local_advance(dev: DeviceState, shard: Shard, cfg: BatonParams,
     the others continue, as the reference's ``vmap``-ed ``while_loop`` does.
     ``cfg.fused=False`` is the reference's per-slot path (a ``vmap`` of
     ``step_disk(fused=False)``): the same one step over all P·S slots, with
-    the two-pass merges and the gather ADC.
+    the two-pass merges and the gather ADC.  ``shard_rows`` (P,) is the
+    shard row that holds each partition's sectors (default ``my_part``; an
+    SPMD rank's shard holds its own partition only, as row 0).
     """
     P, S = dev.states.active.shape
     st = flat_rows(dev.states)
     parts = my_part.repeat_interleave(S)                           # (P*S,)
+    rows = parts if shard_rows is None else shard_rows.repeat_interleave(S)
     progressed = torch.ones(P, dtype=torch.bool, device=parts.device)
     it = torch.zeros(P, dtype=I32, device=parts.device)
     while True:
@@ -422,7 +435,7 @@ def local_advance(dev: DeviceState, shard: Shard, cfg: BatonParams,
         runnable = (st.active & ~st.done & any_frontier & any_local
                     & running.repeat_interleave(S))
         new = step_disk_batched(
-            st, shard, st.lut, local & runnable[:, None], fposs, parts,
+            st, shard, st.lut, local & runnable[:, None], fposs, rows,
             adc_impl=cfg.adc_impl, merge_impl=cfg.merge_impl, groups=P,
             fused=cfg.fused,
         )
@@ -637,11 +650,11 @@ def _trace_accumulate(dev: DeviceState, pre: Counters) -> DeviceState:
 
 
 def _superstep_local(dev, shard, cfg, my_part, n_parts, meter,
-                     codebook=None):
+                     codebook=None, shard_rows=None):
     """Phases 1-2 + route planning (everything before communication)."""
     dev = refill(dev, cfg, my_part, codebook=codebook)
     pre = dev.states.counters
-    dev = local_advance(dev, shard, cfg, my_part, meter)
+    dev = local_advance(dev, shard, cfg, my_part, meter, shard_rows)
     dev = _trace_accumulate(dev, pre)
     dev = deliver_local(dev, cfg, my_part, n_parts, meter)
     res_buf, dev = pack_results(dev, cfg, my_part, n_parts, meter)
@@ -750,6 +763,149 @@ def run_simulated(index: BatonIndex, queries, cfg: BatonParams,
         n_supersteps += 1
     ids, dists, out = _collect(devs, qid_dev, cfg, B, Bp, P, per,
                                n_supersteps)
+    out["host_syncs"] = meter.count - count0
+    out["host_sync_s"] = meter.seconds - sec0
+    return ids, dists, out
+
+
+def _staged(x: torch.Tensor, meter: SyncMeter) -> torch.Tensor:
+    """``x`` on the host for a gloo collective: one counted sync."""
+    t0 = time.perf_counter()
+    out = x.cpu()
+    meter.seconds += time.perf_counter() - t0
+    meter.count += 1
+    return out
+
+
+def _all_to_all(tree, meter: SyncMeter, group=None):
+    """The all_to_all of a send buffer whose leaves are (1, P, cap, ...):
+    row ``d`` of every rank's buffer goes to rank ``d``, which receives
+    (1, P * cap, ...) in source order — what ``run_simulated``'s transpose
+    hands partition ``d``.  Every leaf rides in one uint8 buffer, so one
+    collective moves the whole tree."""
+    leaves: list = []
+    tree_map(leaves.append, tree)
+    device = leaves[0].device
+    P = leaves[0].shape[1]
+    flat = [x[0].reshape(P, -1).contiguous().view(torch.uint8)
+            for x in leaves]
+    send = _staged(torch.cat(flat, 1), meter)
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    recv = recv.to(device)
+    out, off = [], 0
+    for x, f in zip(leaves, flat):
+        chunk = recv[:, off:off + f.shape[1]].contiguous().view(x.dtype)
+        out.append(chunk.reshape((1, P * x.shape[2]) + tuple(x.shape[3:])))
+        off += f.shape[1]
+    it = iter(out)
+    return tree_map(lambda _: next(it), tree)
+
+
+def make_spmd_fn(cfg: BatonParams, n_parts: int, group=None):
+    """The per-rank super-step loop of the reference's ``make_spmd_fn``
+    over ``torch.distributed`` (an initialised process group of
+    ``n_parts`` ranks, rank r owning partition r).
+
+    The returned ``fn(dev, shard, codebook, meter)`` takes this rank's
+    ``DeviceState`` (a leading partition axis of size 1) and a shard whose
+    only row is this rank's partition, and returns ``(dev,
+    n_supersteps)``.  Each super-step: ``_superstep_local``; an all_gather
+    of ``want`` and ``free``; ``grant_matrix`` on the gathered (P, P)
+    matrix (every rank computes the same one); ``pack_sends`` with this
+    rank's grant row; the all_to_all of the state and of the result
+    buffer; ``merge_recv`` and ``merge_results``; an all_reduce of
+    ``remaining``, so every rank stops at the same super-step, under
+    ``run_simulated``'s rule.
+    """
+    rank = dist.get_rank(group)
+    if dist.get_world_size(group) != n_parts:
+        raise ValueError(f"the process group has "
+                         f"{dist.get_world_size(group)} ranks, not {n_parts}")
+
+    def fn(dev: DeviceState, shard: Shard, codebook, meter: SyncMeter):
+        device = dev.queue_head.device
+        my_part = torch.full((1,), rank, dtype=I32, device=device)
+        row0 = torch.zeros(1, dtype=I32, device=device)
+        n_supersteps, remaining = 0, 1
+        while remaining > 0 and n_supersteps < cfg.max_supersteps:
+            dev, res_buf, dest, want, free, rem = _superstep_local(
+                dev, shard, cfg, my_part, n_parts, meter, codebook=codebook,
+                shard_rows=row0)
+            mine = _staged(torch.cat([want[0], free]), meter)    # (P + 1,)
+            got = [torch.empty_like(mine) for _ in range(n_parts)]
+            dist.all_gather(got, mine, group=group)
+            both = torch.stack(got).to(device)                  # (P, P + 1)
+            grant = grant_matrix(both[:, :n_parts], both[:, n_parts],
+                                 cfg.pair_cap)
+            bufs, dev = pack_sends(dev, dest, grant[rank:rank + 1], cfg,
+                                   n_parts, meter)
+            inc_states = _all_to_all(bufs, meter, group)
+            inc_res = _all_to_all(res_buf, meter, group)
+            dev = merge_recv(dev, inc_states, cfg, codebook, meter)
+            dev = merge_results(dev, inc_res, cfg, n_parts, meter)
+            total = _staged(rem.sum(dtype=torch.int64)[None], meter)
+            dist.all_reduce(total, group=group)
+            remaining = int(total)
+            n_supersteps += 1
+        return dev, n_supersteps
+
+    return fn
+
+
+def run_spmd(index: BatonIndex, queries, cfg: BatonParams, rank: int,
+             world: int, group=None, meter: "SyncMeter | None" = None):
+    """The per-rank SPMD driver: rank ``rank`` of ``world == index.p``
+    ranks runs partition ``rank`` (``make_spmd_fn``); rank 0 returns what
+    ``run_simulated`` returns, the other ranks ``None``.
+
+    Every rank splits the whole batch round-robin and seeds the whole
+    ``DeviceState`` (head-index entry points and enqueue LUTs over all
+    queries, as ``run_simulated`` does, so each row is built in the same
+    batch), then keeps its own partition's row.  ``index`` holds either
+    all P partitions or only this rank's (its per-partition leaves one row
+    long, as ``launch/spmd.py`` loads them); the replicated PQ codes,
+    maps, codebook and head index are whole.  After the loop the output rows are
+    gathered to rank 0.  ``host_syncs`` / ``host_sync_s`` are this rank's.
+    """
+    meter = meter or SyncMeter()
+    count0, sec0 = meter.count, meter.seconds
+    P = index.p
+    if world != P:
+        raise ValueError(f"run_spmd runs one partition a rank: world "
+                         f"{world} != P {P}")
+    if dist.get_rank(group) != rank:
+        raise ValueError(f"rank {rank} is rank {dist.get_rank(group)} of "
+                         f"the process group")
+    device = index.device
+    q = torch.as_tensor(np.asarray(queries, np.float32), device=device)
+    q_dev, qid_dev, st_dev, sd_dev, B, Bp, per = _split_round_robin(
+        index, q, cfg, meter)
+    devs = init_device_state(q_dev, qid_dev, st_dev, sd_dev, cfg,
+                             index.codebook)
+    dev = tree_map(lambda x: x[rank:rank + 1].clone(), devs)
+    del devs
+    shard = index.stacked_shards()
+    if shard.vectors.shape[0] == P:
+        shard = shard._replace(vectors=shard.vectors[rank:rank + 1],
+                               neighbors=shard.neighbors[rank:rank + 1])
+    fn = make_spmd_fn(cfg, P, group)
+    dev, n_supersteps = fn(dev, shard, index.codebook, meter)
+    outs = (dev.out_ids, dev.out_dists, dev.out_stats, dev.out_trace,
+            dev.delivered)
+    gathered = []
+    for x in outs:
+        x = _staged(x, meter)
+        got = [torch.empty_like(x) for _ in range(P)] if rank == 0 else None
+        dist.gather(x, got, dst=dist.get_global_rank(group, 0)
+                    if group is not None else 0, group=group)
+        gathered.append(None if got is None else torch.cat(got))
+    if rank != 0:
+        return None
+    ids_, dists_, stats_, trace_, delivered = gathered
+    ids, dists, out = _collect(dev._replace(
+        out_ids=ids_, out_dists=dists_, out_stats=stats_, out_trace=trace_,
+        delivered=delivered), qid_dev, cfg, B, Bp, P, per, n_supersteps)
     out["host_syncs"] = meter.count - count0
     out["host_sync_s"] = meter.seconds - sec0
     return ids, dists, out

@@ -5,7 +5,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --config batann-serve-smoke --engine scatter_gather
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --n 2000 \\
-        --servers 4 --queries 32 --exec-workers 2 --exec-batch 4
+        --servers 4 --queries 32 --exec-workers 2 --exec-batch 4 \\
+        [--exec-mode process]
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
         --config batann-serve-smoke --send-rate 200 --index-cache build/idx
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
@@ -24,7 +25,8 @@ modeled QPS, latency and bottleneck; with ``--send-rate`` the event
 simulator's block: latencies under load on the modeled cluster), the
 search's wall time and QPS on the device, then one JSON line of the same
 numbers.  With ``--exec-workers N`` it then serves the same queries through
-the executable tier (closed loop, or open loop at ``--exec-rate``) and
+the executable tier (closed loop, or open loop at ``--exec-rate``; worker
+threads, or spawned worker processes with ``--exec-mode process``) and
 prints that JSON dict as another line.  With ``--insert-frac`` /
 ``--delete-frac`` it then runs ``Deployment.run_mutating`` (streamed
 inserts, tombstones, consolidation; ``--ingest-rate`` prices the writes in
@@ -136,7 +138,12 @@ def build_argparser() -> argparse.ArgumentParser:
                          "wins; needs --faults)")
     ap.add_argument("--exec-workers", type=int, default=None,
                     help="also serve the queries on this many executable-"
-                         "tier worker threads (run_exec)")
+                         "tier workers (run_exec)")
+    ap.add_argument("--exec-mode", default=None,
+                    choices=["thread", "process"],
+                    help="executable-tier workers: threads sharing this "
+                         "process, or spawned processes (each with its own "
+                         "CUDA context on the card)")
     ap.add_argument("--exec-rate", type=float, default=None,
                     help="open-loop rate (QPS) for the tier; 0 = closed loop")
     ap.add_argument("--exec-arrivals", type=int, default=None,
@@ -180,7 +187,8 @@ def config_from_args(args):
              "sat_criterion": args.sat_criterion, "elastic": args.elastic,
              "faults": args.faults, "retry": args.retry,
              "hedge_ms": args.hedge_ms},
-        exec={"workers": args.exec_workers, "send_rate": args.exec_rate,
+        exec={"workers": args.exec_workers, "mode": args.exec_mode,
+              "send_rate": args.exec_rate,
               "arrival": args.arrival, "n_arrivals": args.exec_arrivals,
               "batch": args.exec_batch},
         mutate={"insert_frac": args.insert_frac,

@@ -36,23 +36,25 @@ same-worker short-circuits that skip the codec, and ``advance_calls`` —
 advance calls made by the owning worker (the denominator of the
 batching win).
 
-A copy of ``repro/serve_async/queues.py``'s ``ThreadInbox`` (the
-condition-variable deque pair behind thread workers).  ``ProcessInbox``,
-the ``mp.Queue`` pair behind process workers, is not ported yet and raises.
+Counterpart of ``repro/serve_async/queues.py``: two implementations behind
+one duck-typed interface (``offer_admit`` / ``push_handoff`` / ``get`` /
+``get_many`` / ``release`` / ``stop`` / ``counter_snapshot``): a
+condition-variable deque pair for thread workers, and an ``mp.Queue`` pair
+from a spawn context with shared counters for process workers (a polling
+``get``; after ``stop`` one short blocking read catches a hand-off still
+in the queue's feeder pipe).
 """
 
 from __future__ import annotations
 
 import collections
+import queue as _queue
 import threading
+import time
 
 from repro_torch.serve_async import sanitize
 
 _HANDOFF, _ADMIT = "handoff", "admit"
-
-PROCESS_MODE_NOT_PORTED = (
-    "the executable tier's process mode (spawned workers over mp.Queue "
-    "inboxes) is not ported yet (ROADMAP queue 1 item 6)")
 
 COUNTER_NAMES = ("wire_frames", "wire_batons", "wire_bytes",
                  "local_batons", "advance_calls")
@@ -145,7 +147,96 @@ class ThreadInbox:
 
 
 class ProcessInbox:
-    """The process-mode inbox: not ported yet."""
+    """``mp.Queue``-backed inbox for process-mode workers (same semantics).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(PROCESS_MODE_NOT_PORTED)
+    ``ctx`` is a spawn context; the inbox is handed to its worker when the
+    process starts.  Hand-offs are unbounded, admissions bounded at
+    ``queue_cap``; ``resident`` and the ``COUNTER_NAMES`` counters are
+    shared values that every process reads and writes under their locks.
+    """
+
+    def __init__(self, ctx, slots: int, admit_headroom: int, queue_cap: int):
+        self._handoffs = ctx.Queue()
+        self._admits = ctx.Queue(maxsize=queue_cap)
+        self._resident = ctx.Value("i", 0)
+        self._stopped = ctx.Event()
+        self._usable = _usable(slots, admit_headroom)
+        self._counters = {name: ctx.Value("q", 0) for name in COUNTER_NAMES}
+
+    @property
+    def resident(self) -> int:
+        return self._resident.value
+
+    def offer_admit(self, item) -> bool:
+        try:
+            self._admits.put_nowait(item)
+            return True
+        except _queue.Full:
+            return False
+
+    def push_handoff(self, item, n: int = 1, nbytes: int = 0,
+                     local: bool = False) -> None:
+        with self._resident.get_lock():
+            self._resident.value += n
+        if local:
+            self._bump("local_batons", n)
+        else:
+            self._bump("wire_frames", 1)
+            self._bump("wire_batons", n)
+            self._bump("wire_bytes", nbytes)
+        self._handoffs.put((n, item))
+
+    def _bump(self, name: str, n: int) -> None:
+        c = self._counters[name]
+        with c.get_lock():
+            c.value += n
+
+    def get_many(self, max_n: int, poll_s: float = 0.0005):
+        """As ``ThreadInbox.get_many``, polling every ``poll_s`` seconds."""
+        while True:
+            out, taken = [], 0
+            while taken < max_n:
+                try:
+                    n, item = self._handoffs.get_nowait()
+                except _queue.Empty:
+                    break
+                out.append((_HANDOFF, item))
+                taken += n
+            while taken < max_n and self._resident.value < self._usable:
+                try:
+                    item = self._admits.get_nowait()
+                except _queue.Empty:
+                    break
+                with self._resident.get_lock():
+                    self._resident.value += 1
+                out.append((_ADMIT, item))
+                taken += 1
+            if out:
+                return out
+            if self._stopped.is_set():
+                # drain check: a hand-off may still be in the feeder pipe
+                try:
+                    _, item = self._handoffs.get(timeout=0.05)
+                except _queue.Empty:
+                    return None
+                return [(_HANDOFF, item)]
+            time.sleep(poll_s)
+
+    def get(self, poll_s: float = 0.0005):
+        """One baton as ``(kind, item)``, or ``None`` once stopped and
+        drained (``get_many(1)``)."""
+        got = self.get_many(1, poll_s=poll_s)
+        return None if got is None else got[0]
+
+    def add_advance(self, n: int = 1) -> None:
+        self._bump("advance_calls", n)
+
+    def counter_snapshot(self) -> dict:
+        return {name: c.value for name, c in self._counters.items()}
+
+    def release(self) -> None:
+        with self._resident.get_lock():
+            self._resident.value -= 1
+
+    def stop(self) -> None:
+        self._stopped.set()

@@ -180,6 +180,31 @@ def advance_batch(sts: QueryState, shard: Shard, my_part: int, w: int,
     return _finish(sts, shard, my_part, w)
 
 
+def dummy_state(dim: int, cfg, pq_m: int, pq_k: int,
+                device: torch.device) -> QueryState:
+    """A seeded state with no valid starts (its advance stops at once)."""
+    return seed_state(
+        torch.zeros((dim,), device=device),
+        torch.full((cfg.n_starts,), -1, dtype=I32, device=device),
+        torch.full((cfg.n_starts,), INF, device=device),
+        torch.zeros((pq_m, pq_k), device=device), 0, 0, cfg.L, cfg.pool)
+
+
+def warm(shards: dict, cfg, batch: int, dummy: QueryState) -> None:
+    """Run every advance variant a worker over ``shards`` ({partition:
+    shard}) can run once: the per-state path and each power-of-two batch
+    size up to ``batch``, on every partition.  ``dummy`` carries no valid
+    start, so each advance stops after its first loop test."""
+    for part, shard in shards.items():
+        advance_state(dummy, shard, part, cfg.W, cfg.max_local_steps)
+        size = 2
+        while size <= batch:
+            advance_batch(stack_states([dummy] * size), shard, part, cfg.W,
+                          cfg.max_local_steps, adc_impl=cfg.adc_impl,
+                          merge_impl=cfg.merge_impl)
+            size *= 2
+
+
 def rebuild_lut(codebook: torch.Tensor, query: torch.Tensor,
                 lut_impl: str = "einsum") -> torch.Tensor:
     """One query's LUT, rebuilt where it lands (``baton.merge_recv``)."""
@@ -206,7 +231,7 @@ def state_to_host(st: QueryState) -> dict:
     return out
 
 
-def _to_device(a, device: torch.device) -> torch.Tensor:
+def to_device(a, device: torch.device) -> torch.Tensor:
     """A numpy array (or tensor) on ``device``; on a card through pinned
     memory, so the copy does not block the host."""
     if torch.is_tensor(a):
@@ -223,18 +248,18 @@ def state_from_host(leaves: dict, device) -> QueryState:
     device = torch.device(device)
     stats = np.asarray(leaves["stats"], np.int32)
     return QueryState(
-        query=_to_device(leaves["query"], device),
-        beam_ids=_to_device(leaves["beam_ids"], device),
-        beam_dists=_to_device(leaves["beam_dists"], device),
-        beam_expl=_to_device(leaves["beam_expl"], device),
-        pool_ids=_to_device(leaves["pool_ids"], device),
-        pool_dists=_to_device(leaves["pool_dists"], device),
-        counters=Counters(*_to_device(stats, device).unbind()),
+        query=to_device(leaves["query"], device),
+        beam_ids=to_device(leaves["beam_ids"], device),
+        beam_dists=to_device(leaves["beam_dists"], device),
+        beam_expl=to_device(leaves["beam_expl"], device),
+        pool_ids=to_device(leaves["pool_ids"], device),
+        pool_dists=to_device(leaves["pool_dists"], device),
+        counters=Counters(*to_device(stats, device).unbind()),
         active=_scalar(True, torch.bool, device),
         done=_scalar(False, torch.bool, device),
         home=_scalar(int(leaves["home"]), I32, device),
         qid=_scalar(int(leaves["qid"]), I32, device),
-        lut=_to_device(leaves["lut"], device) if "lut" in leaves else None,
+        lut=to_device(leaves["lut"], device) if "lut" in leaves else None,
     )
 
 
@@ -269,7 +294,7 @@ def unpack_from_wire(leaves: dict, codebook: torch.Tensor, cfg) -> QueryState:
     if not cfg.ship_lut:
         leaves["stats"] = np.asarray(leaves["stats"], np.int32).copy()
         leaves["stats"][LUT_BUILDS_COL] += 1
-        leaves["query"] = _to_device(leaves["query"], dev)
+        leaves["query"] = to_device(leaves["query"], dev)
         leaves["lut"] = rebuild_lut(codebook, leaves["query"], cfg.lut_impl)
     elif leaves["lut"].dtype == np.int8:
         leaves["lut"] = pq.dequantize_lut_i8(

@@ -1,29 +1,37 @@
 """The executable serving tier: workers + client + wall-clock results.
 
-Counterpart of ``repro/serve_async/tier.py`` in thread mode.
-``AsyncServingTier`` turns a built ``BatonIndex`` into a running host-level
-service: ``n_workers`` partition-owning worker threads, per-worker
-two-class inboxes with ``SlotStage`` admission semantics, and a client that
-injects queries — closed-loop (``search``: blocking admission, every query
-completes) or open-loop from a ``cluster.workload`` arrival schedule
-(``serve``: bounded queues reject under overload).  ``mode="process"``
-raises: the spawned-process workers are not ported yet.
+Counterpart of ``repro/serve_async/tier.py``.  ``AsyncServingTier`` turns a
+built ``BatonIndex`` into a running host-level service: ``n_workers``
+partition-owning workers (threads, or processes from a spawn context),
+per-worker two-class inboxes with ``SlotStage`` admission semantics, and a
+client that injects queries — closed-loop (``search``: blocking admission,
+every query completes) or open-loop from a ``cluster.workload`` arrival
+schedule (``serve``: bounded queues reject under overload).
 
 Guarantees (tested):
 
 * **Answer parity** — ``search(queries)`` returns (ids, dists) and the
   five ``STAT_FIELDS`` counters bitwise equal to ``baton.run_simulated``
-  (= ``BatonEngine.search``) at any (worker count × micro-batch), on the
-  host; on the card under the LUT impl that PERF.md names.
+  (= ``BatonEngine.search``) at any (worker count × micro-batch) in either
+  mode, on the host; on the card under the LUT impl that PERF.md names.
 * **Conservation** — every offered arrival ends as exactly one of
   {completed, rejected}; hand-offs are never dropped.
 * **Determinism** — one worker processes admissions in arrival order.
 
-The index lives on one device and every worker thread launches on it; the
-kernel libraries are built and loaded before any worker starts, so no two
-threads compile at once.  Wall-clock per-query latency, throughput, the
-measured wire bytes per hand-off (vs the modeled ``envelope_bytes``) and
-the workers' host syncs come back in ``ExecRunResult``.
+Thread mode: the index lives on one device and every worker thread
+launches on it; the kernel libraries are built and loaded before any worker
+starts, so no two threads compile at once.  Process mode: the parent
+builds the libraries, then spawns one process per worker and sends it its
+partitions' shards as numpy (never CUDA tensors); each child opens its own
+CUDA context on the index's device, loads the libraries, warms up and
+reports ready, and the constructor waits for all of them (``startup_s``).
+Admissions travel as numpy rows.  The children's host syncs are read from
+shared meters per run, as thread workers' are; their kernel launch counts
+come back when the tier closes and ``child_launch_counts()`` sums them (a
+thread-mode tier's launches are this process's ``kernels.launch_counts()``).  Wall-clock per-query latency,
+throughput, the measured wire bytes per hand-off (vs the modeled
+``envelope_bytes``) and the workers' host syncs come back in
+``ExecRunResult``.
 """
 
 from __future__ import annotations
@@ -44,6 +52,8 @@ from repro_torch.serve_async import queues, runtime, sanitize, wire
 from repro_torch.serve_async import worker as worker_mod
 
 INTER_HOPS_COL = STAT_FIELDS.index("inter_hops")
+START_TIMEOUT_S = 600.0    # process mode: children import, load and warm up
+STOP_TIMEOUT_S = 30.0      # process mode: children drain and report back
 
 
 @dataclasses.dataclass
@@ -115,8 +125,8 @@ class ExecRunResult:
 
 
 class AsyncServingTier:
-    """N partition-owning worker threads serving baton queries over a built
-    index (on the index's device)."""
+    """N partition-owning workers (threads or processes) serving baton
+    queries over a built index (on the index's device)."""
 
     def __init__(self, index, params, n_workers: int, mode: str = "thread",
                  slots: "int | None" = None, admit_headroom: int = 2,
@@ -124,8 +134,6 @@ class AsyncServingTier:
                  sector_codes: "bool | None" = None):
         if mode not in ("thread", "process"):
             raise ValueError(f"mode must be thread|process: {mode}")
-        if mode == "process":
-            raise NotImplementedError(queues.PROCESS_MODE_NOT_PORTED)
         if not 1 <= n_workers <= index.p:
             raise ValueError(
                 f"n_workers must be in [1, p={index.p}]: {n_workers}")
@@ -161,52 +169,120 @@ class AsyncServingTier:
             for name in _build.SOURCES:
                 _build.load(name)
 
-        owned = {w: [pp for pp in range(self.p) if self.part2worker[pp] == w]
-                 for w in range(n_workers)}
-        self._results = _queue.SimpleQueue()
-        self._inboxes = [queues.ThreadInbox(slots, admit_headroom, queue_cap)
-                         for _ in range(n_workers)]
-        self._meters = [SyncMeter() for _ in range(n_workers)]
-        self._workers = [
-            worker_mod.start_thread_worker(
-                w, {pp: self._shards[pp] for pp in owned[w]}, self._codebook,
-                params, self._inboxes[w], self._inboxes, self.part2worker,
-                self._results, batch, self._meters[w])
-            for w in range(n_workers)
-        ]
         # close() may race between the user thread and __exit__; the lock
         # makes the closed check-then-act atomic so teardown runs once
         self._close_lock = threading.Lock()
         self._closed = False
+        self._errors: list = []
+        # process mode: each child's start-up seconds (spawn to its entry,
+        # shards and libraries loaded, warmed up), and its launch counts,
+        # filled in by close()
+        self.worker_startup: "list[dict]" = [{} for _ in range(n_workers)]
+        self.worker_launch_counts: "list[dict]" = [{} for _ in
+                                                   range(n_workers)]
+        owned = {w: [pp for pp in range(self.p) if self.part2worker[pp] == w]
+                 for w in range(n_workers)}
+        t0 = time.perf_counter()
+        if mode == "thread":
+            self._results = _queue.SimpleQueue()
+            self._inboxes = [
+                queues.ThreadInbox(slots, admit_headroom, queue_cap)
+                for _ in range(n_workers)]
+            self.meters = [SyncMeter() for _ in range(n_workers)]
+            self._workers = [
+                worker_mod.start_thread_worker(
+                    w, {pp: self._shards[pp] for pp in owned[w]},
+                    self._codebook, params, self._inboxes[w], self._inboxes,
+                    self.part2worker, self._results, batch, self.meters[w])
+                for w in range(n_workers)]
+        else:
+            import multiprocessing as mp
+
+            # spawn, never fork: this process may hold a CUDA context
+            ctx = mp.get_context("spawn")
+            self._results = ctx.Queue()
+            self._inboxes = [
+                queues.ProcessInbox(ctx, slots, admit_headroom, queue_cap)
+                for _ in range(n_workers)]
+            self.meters = [worker_mod.SharedSyncMeter(ctx)
+                           for _ in range(n_workers)]
+            codebook_np = index.codebook.cpu().numpy()
+            self._workers, setups = [], []
+            t_spawn = time.time()
+            for w in range(n_workers):
+                # the shards go through a queue once every child is
+                # started: as spawn arguments they would block each
+                # start() until that child had booted, one after another
+                setups.append(ctx.Queue())
+                proc = ctx.Process(
+                    target=worker_mod.process_worker_main,
+                    name=f"serve-async-w{w}", daemon=True,
+                    args=(w, setups[w], dataclasses.asdict(params),
+                          str(self.device), self._inboxes[w], self._inboxes,
+                          self.part2worker, self._results, batch,
+                          self.meters[w]))
+                proc.start()
+                self._workers.append(proc)
+            for w, setup in enumerate(setups):
+                setup.put(({pp: self._shard_arrays(pp) for pp in owned[w]},
+                           codebook_np))
+                # a child that dies before reading must not hold up this
+                # process's exit on the queue's feeder thread
+                setup.cancel_join_thread()
+            self.worker_startup = self._await_ready(t_spawn)
+            for setup in setups:
+                setup.close()
+        self.startup_s = time.perf_counter() - t0
+
+    def _shard_arrays(self, part: int) -> dict:
+        """A process worker's copy of one partition's shard: the numpy
+        leaves of the thread workers' ``partition_shard``."""
+        return {name: None if x is None else x.cpu().numpy()
+                for name, x in self._shards[part]._asdict().items()}
+
+    def _await_ready(self, t_spawn: float) -> list:
+        """Wait until every child reports ready; return each one's start-up
+        seconds.  Raise (after closing the tier) if one fails, dies or
+        takes longer than START_TIMEOUT_S."""
+        startup: list = [{} for _ in range(self.n_workers)]
+        ready, deadline = 0, time.perf_counter() + START_TIMEOUT_S
+        while ready < self.n_workers:
+            try:
+                msg = self._results.get(timeout=0.5)
+            except _queue.Empty:
+                dead = [w.name for w in self._workers if not w.is_alive()]
+                if dead or time.perf_counter() > deadline:
+                    self.close()
+                    raise RuntimeError(
+                        f"exec tier workers did not start: dead {dead}, "
+                        f"{ready}/{self.n_workers} ready")
+                continue
+            if msg[0] == worker_mod.READY:
+                ready += 1
+                st = msg[2]
+                startup[msg[1]] = {
+                    "start_s": st["entry"] - t_spawn,
+                    "load_s": st["loaded"] - st["entry"],
+                    "warm_s": st["warm"] - st["loaded"]}
+            elif msg[0] == worker_mod.ERROR:
+                self.close()
+                raise RuntimeError(
+                    f"exec tier worker {msg[1]} failed to start:\n{msg[2]}")
+        return startup
 
     def _dummy_state(self):
-        """A seeded state with no valid starts (its advance stops at once)."""
-        cfg, dev = self.cfg, self.device
         pq_m, pq_k = self.index.codebook.shape[:2]
-        return runtime.seed_state(
-            torch.zeros((self.index.dim,), device=dev),
-            torch.full((cfg.n_starts,), -1, dtype=torch.int32, device=dev),
-            torch.full((cfg.n_starts,), float("inf"), device=dev),
-            torch.zeros((pq_m, pq_k), device=dev), 0, 0, cfg.L, cfg.pool)
+        return runtime.dummy_state(self.index.dim, self.cfg, pq_m, pq_k,
+                                   self.device)
 
     def warmup(self) -> None:
         """Run every advance variant this tier can run once, off the
         clock: the per-state path and each power-of-two batch size up to
-        ``batch``, on every partition.  The dummy states carry no valid
-        start, so each advance stops after its first loop test."""
-        cfg = self.cfg
-        dummy = self._dummy_state()
-        for pp in range(self.p):
-            shard = self._shards[pp]
-            runtime.advance_state(dummy, shard, pp, cfg.W,
-                                  cfg.max_local_steps)
-            size = 2
-            while size <= self.batch:
-                runtime.advance_batch(
-                    runtime.stack_states([dummy] * size), shard, pp, cfg.W,
-                    cfg.max_local_steps, adc_impl=cfg.adc_impl,
-                    merge_impl=cfg.merge_impl)
-                size *= 2
+        ``batch``, on every partition.  A no-op in process mode: each child
+        warms its own partitions before it reports ready."""
+        if self.mode != "thread":
+            return
+        runtime.warm(self._shards, self.cfg, self.batch, self._dummy_state())
         synchronize(self.device)
 
     # ------------------------------------------------------------- client --
@@ -221,7 +297,8 @@ class AsyncServingTier:
         ``times_s[a] * time_scale`` and a full admission queue *rejects*.
         Head-index entry points and admission LUTs (``cfg.lut_impl``) are
         computed for the whole batch on the device before the clock starts;
-        an admission carries its rows as device tensors.
+        an admission carries its rows as device tensors (thread mode) or
+        numpy arrays (process mode).
         """
         if self._closed:
             raise RuntimeError("tier is closed")
@@ -234,6 +311,9 @@ class AsyncServingTier:
         q_dev = torch.as_tensor(queries, device=self.device)
         starts, start_d = self.index.head_starts(q_dev, cfg.n_starts)
         luts = pq.build_lut(self._codebook, q_dev, impl=cfg.lut_impl)
+        rows = (q_dev, starts, start_d, luts)
+        if self.mode == "process":
+            rows = tuple(x.cpu().numpy() for x in rows)
         synchronize(self.device)
 
         ids = np.full((n, cfg.k), -1, np.int32)
@@ -248,7 +328,7 @@ class AsyncServingTier:
         # hand-off/advance accounting persists across runs on the same
         # tier, so diff a snapshot (nothing is in flight at the diff)
         counters0 = [ib.counter_snapshot() for ib in self._inboxes]
-        syncs0 = [(m.count, m.seconds) for m in self._meters]
+        syncs0 = [(m.count, m.seconds) for m in self.meters]
 
         t0 = time.perf_counter()
 
@@ -259,6 +339,9 @@ class AsyncServingTier:
                 except _queue.Empty:
                     if stop.is_set():
                         return
+                    continue
+                if msg[0] == worker_mod.ERROR:
+                    self._errors.append(msg)
                     continue
                 _, a, _qid, r_ids, r_dists, r_stats, t_done = msg
                 if not np.isnan(done_s[a]):
@@ -274,8 +357,7 @@ class AsyncServingTier:
         for a in range(n):
             j = int(trace_idx[a])
             inbox = self._inboxes[self.part2worker[int(homes[a])]]
-            msg = (a, j, int(homes[a]), q_dev[j], starts[j], start_d[j],
-                   luts[j])
+            msg = (a, j, int(homes[a]), *(x[j] for x in rows))
             if times_s is None:
                 while not inbox.offer_admit(msg):
                     time.sleep(1e-4)
@@ -293,6 +375,10 @@ class AsyncServingTier:
         while n_done[0] < target_done:
             if n_done[0] > seen:
                 seen, last_progress = n_done[0], time.perf_counter()
+            if self._errors:
+                stop.set()
+                _, wid, tb = self._errors[0]
+                raise RuntimeError(f"exec tier worker {wid} failed:\n{tb}")
             if time.perf_counter() - last_progress > drain_timeout_s:
                 stop.set()
                 raise RuntimeError(
@@ -322,9 +408,9 @@ class AsyncServingTier:
             wire_batons=totals["wire_batons"],
             wire_bytes=totals["wire_bytes"],
             host_syncs=sum(m.count - c for m, (c, _) in
-                           zip(self._meters, syncs0)),
+                           zip(self.meters, syncs0)),
             host_sync_s=sum(m.seconds - s for m, (_, s) in
-                            zip(self._meters, syncs0)),
+                            zip(self.meters, syncs0)),
         )
         if sanitize.enabled():
             sanitize.check_invariants(result, self._inboxes)
@@ -364,8 +450,47 @@ class AsyncServingTier:
             self._closed = True
         for inbox in self._inboxes:
             inbox.stop()
+        if self.mode == "process":
+            counts = self._collect_stopped()
+            with self._close_lock:
+                self.worker_launch_counts = counts
         for w in self._workers:
             w.join(timeout=10.0)
+        if self.mode == "process":
+            for w in self._workers:
+                if w.is_alive():
+                    w.terminate()
+                    w.join(timeout=10.0)
+
+    def _collect_stopped(self) -> list:
+        """Each stopping child's launch counts, read off the result queue
+        before joining it (a child exits once its queue is flushed)."""
+        counts: list = [{} for _ in range(self.n_workers)]
+        deadline = time.perf_counter() + STOP_TIMEOUT_S
+        pending = set(range(self.n_workers))
+        while pending and time.perf_counter() < deadline:
+            if not any(self._workers[w].is_alive() for w in pending):
+                deadline = min(deadline, time.perf_counter() + 0.5)
+            try:
+                msg = self._results.get(timeout=0.05)
+            except _queue.Empty:
+                continue
+            if msg[0] == worker_mod.STOPPED:
+                counts[msg[1]] = msg[2]
+                pending.discard(msg[1])
+            elif msg[0] == worker_mod.ERROR:
+                self._errors.append(msg)
+                pending.discard(msg[1])
+        return counts
+
+    def child_launch_counts(self) -> dict:
+        """Process mode, after ``close()``: the kernel launches of all
+        worker processes, by kernel name, summed over the tier's runs."""
+        total: dict = {}
+        for counts in self.worker_launch_counts:
+            for name, n in counts.items():
+                total[name] = total.get(name, 0) + n
+        return total
 
     def __enter__(self) -> "AsyncServingTier":
         return self

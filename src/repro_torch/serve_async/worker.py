@@ -1,6 +1,6 @@
 """Partition-owning workers: the service loop behind the executable tier.
 
-Counterpart of ``repro/serve_async/worker.py`` in thread mode.  A worker
+Counterpart of ``repro/serve_async/worker.py``.  A worker
 owns the partitions ``part % n_workers == wid``.  Its loop is the
 executable version of the engine's super-step, a micro-batch of batons at a
 time:
@@ -26,18 +26,33 @@ computes.  A hand-off to a partition of the same worker still counts an
 skipped.  After an advance the group's states come back to the host in one
 transfer (``runtime.to_host``); each worker counts its host syncs in its
 own ``SyncMeter``.
+
+The same loop body serves both modes.  Thread workers share the parent's
+shards and kernel libraries.  A process worker (``process_worker_main``,
+started from a spawn context) rebuilds its shards and the codebook from
+numpy on the device the parent names — the card, where the parent runs on
+it — loads the kernel libraries the parent built, warms every advance
+variant, and only then reports ready.  Its syncs go to a
+``SharedSyncMeter`` the parent reads; when it stops it sends its kernel
+launch counts back on the result queue.
 """
 
 from __future__ import annotations
 
 import threading
 import time
+import traceback
 
-from repro_torch.device import SyncMeter
+import torch
+
+from repro_torch.device import SyncMeter, resolve_device
 from repro_torch.serve_async import runtime, wire
 
 # message kinds on the result queue
 RESULT = "result"
+READY = "ready"      # a process worker is serving: (READY, wid, stamps)
+STOPPED = "stopped"  # a process worker stopped: (STOPPED, wid, launches)
+ERROR = "error"      # a process worker raised: (ERROR, wid, traceback)
 # hand-off payload tags (first element of a hand-off queue item)
 FRAME = "frame"      # coalesced cross-worker frame: (FRAME, bytes)
 LOCAL = "local"      # same-worker short-circuit: (LOCAL, arrival, part, leaves)
@@ -48,7 +63,10 @@ def _expand(got, codebook, cfg):
     work = []
     for kind, msg in got:
         if kind == "admit":
-            arrival_id, qid, home, query, starts, start_d, lut = msg
+            # device rows in thread mode, numpy rows in process mode
+            arrival_id, qid, home, *rows = msg
+            query, starts, start_d, lut = (
+                runtime.to_device(x, codebook.device) for x in rows)
             st = runtime.seed_state(query, starts, start_d, lut, home, qid,
                                     cfg.L, cfg.pool)
             work.append((arrival_id, st, int(home)))
@@ -164,3 +182,88 @@ def start_thread_worker(wid, shards, codebook, cfg, inbox, inboxes,
     )
     t.start()
     return t
+
+
+class SharedSyncMeter(SyncMeter):
+    """A ``SyncMeter`` whose count and seconds live in shared memory: a
+    process worker counts into it, the parent reads it (``tier.run`` diffs
+    it per run, as it does a thread worker's meter)."""
+
+    def __init__(self, ctx):
+        self._count = ctx.Value("q", 0)
+        self._seconds = ctx.Value("d", 0.0)
+        super().__init__()
+
+    @property
+    def count(self) -> int:
+        return self._count.value
+
+    @count.setter
+    def count(self, v: int) -> None:
+        with self._count.get_lock():
+            self._count.value = v
+
+    @property
+    def seconds(self) -> float:
+        return self._seconds.value
+
+    @seconds.setter
+    def seconds(self, v: float) -> None:
+        with self._seconds.get_lock():
+            self._seconds.value = v
+
+
+def process_worker_main(wid, setup, cfg_dict, device, inbox, inboxes,
+                        part2worker, results, batch=1, meter=None) -> None:
+    """Child-process entry: rebuild the shards on ``device``, then serve.
+
+    ``setup`` is a queue that delivers ``(shard_arrays, codebook)``:
+    each owned partition's numpy leaves of its ``runtime.partition_shard``
+    and the codebook as numpy.  ``cfg_dict`` is the ``BatonParams`` field
+    dict.  ``device`` is the parent's index device ("cuda:0" on the card):
+    asking for a card that is not there raises, nothing falls back to the
+    host.  Any failure is reported on ``results`` as ``ERROR`` with its
+    traceback before it propagates.
+    """
+    t_entry = time.time()
+    from repro_torch import kernels
+    from repro_torch.core.baton import BatonParams
+    from repro_torch.core.beam_search import Shard
+
+    try:
+        # the children share the host's cores; their host work is small
+        # per call, so one intra-op thread each
+        torch.set_num_threads(1)
+        dev = resolve_device(device)
+        cfg = BatonParams(**cfg_dict)
+        shard_arrays, codebook_np = setup.get()
+        shards = {
+            part: Shard(**{name: None if a is None
+                           else torch.from_numpy(a).to(dev)
+                           for name, a in leaves.items()})
+            for part, leaves in shard_arrays.items()}
+        codebook = torch.from_numpy(codebook_np).to(dev)
+        if dev.type == "cuda":
+            # the parent built every library: this only loads them (a
+            # missing one is built, or raises where there is no nvcc)
+            from repro_torch.kernels import _build
+
+            for name in _build.SOURCES:
+                _build.load(name)
+            torch.cuda.synchronize(dev)
+        t_loaded = time.time()
+        pq_m, pq_k = codebook.shape[:2]
+        dim = next(iter(shards.values())).vectors.shape[-1]
+        runtime.warm(shards, cfg, batch,
+                     runtime.dummy_state(dim, cfg, pq_m, pq_k, dev))
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        kernels.reset_launch_counts()
+        results.put((READY, wid, {"entry": t_entry, "loaded": t_loaded,
+                                  "warm": time.time()}))
+        service_loop(wid, shards, codebook, cfg, inbox, inboxes, part2worker,
+                     results, batch, meter)
+        results.put((STOPPED, wid, kernels.launch_counts()))
+    except Exception:
+        results.put((ERROR, wid, traceback.format_exc()))
+        raise

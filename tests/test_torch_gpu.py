@@ -466,3 +466,82 @@ def test_run_mutating_on_card(cuda):
     assert m["n_live"] == m["n_base"] + m["n_inserted"] - m["n_deleted"]
     assert m["mut_recall"] >= m["rebuilt_recall"] - 0.1
     assert m["ingest_offered"] == m["ingest_completed"] + m["ingest_rejected"]
+
+
+@pytest.mark.gpu
+def test_exec_tier_process_mode_on_card(cuda):
+    """Two worker processes on the card (dense route, LUT kernel): every
+    kernel of the route launched in the children, and the answers are
+    bitwise equal to thread mode's."""
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.api.engine import BatonEngine
+    from repro_torch.configs.batann_serve import IndexSpec, SearchParams
+    from repro_torch.data import synth
+    from repro_torch.serve_async import AsyncServingTier
+
+    ds = synth.make_dataset("deep", n=3000, n_queries=64, seed=0,
+                            compute_gt_k=0, device="cuda")
+    eng = BatonEngine(device="cuda")
+    eng.build(ds, IndexSpec(p=4, r=24, pq_m=24, pq_k=256))
+    cfg = eng.baton_params(SearchParams(
+        L=32, W=4, pool=128, slots=16, adc_impl="mxu",
+        merge_impl="bitonic", lut_impl="kernel"))
+    with AsyncServingTier(eng.index, cfg, n_workers=2, batch=4) as tier:
+        want = tier.search(ds.queries)
+    kernels.reset_launch_counts()
+    tier = AsyncServingTier(eng.index, cfg, n_workers=2, batch=4,
+                            mode="process")
+    try:
+        res = tier.search(ds.queries)
+    finally:
+        tier.close()
+    assert not any(w.is_alive() for w in tier._workers)
+    assert np.array_equal(res.ids, want.ids)
+    assert np.array_equal(res.dists, want.dists)
+    assert np.array_equal(res.stats, want.stats)
+    counts = tier.child_launch_counts()
+    for name in ("pq_adc", "pq_lut", "bitonic_topk"):
+        assert counts[name] > 0, (name, counts)
+    assert res.host_syncs > 0
+
+
+@pytest.mark.gpu
+def test_spmd_on_card_matches_run_simulated(cuda, tmp_path):
+    """Two ranks on the one card over gloo, LUT-kernel route: bitwise equal
+    to ``run_simulated`` (ids, dists, counters, traces, super-steps), and
+    the slot ADC, the top-k and the LUT kernel launched in every rank."""
+    import numpy as np
+
+    from repro_torch.api.deployment import Deployment
+    from repro_torch.api.engine import BatonEngine
+    from repro_torch.configs.batann_serve import (
+        IndexSpec, SearchParams, ServeConfig)
+    from repro_torch.core import baton
+    from repro_torch.data import synth
+    from repro_torch.launch import spmd
+
+    ds = synth.make_dataset("deep", n=3000, n_queries=64, seed=0,
+                            compute_gt_k=0, device="cuda")
+    eng = BatonEngine(device="cuda")
+    eng.build(ds, IndexSpec(p=2, r=24, pq_m=24, pq_k=256))
+    Deployment.from_parts(ServeConfig().with_updates(index={"p": 2}),
+                          eng).save(str(tmp_path))
+    cfg = eng.baton_params(SearchParams(
+        L=32, W=4, pool=128, slots=16, adc_impl="mxu_tiled",
+        merge_impl="bitonic", lut_impl="kernel"))
+    want = baton.run_simulated(eng.index, ds.queries, cfg)
+    [(ids, dists, st)] = spmd.search(str(tmp_path), ds.queries, [cfg],
+                                     world=2, timeout_s=300.0)
+    assert np.array_equal(ids, want[0]) and np.array_equal(dists, want[1])
+    for f in ("hops", "inter_hops", "dist_comps", "reads", "lut_builds",
+              "trace"):
+        assert np.array_equal(st[f], want[2][f]), f
+    assert st["n_supersteps"] == want[2]["n_supersteps"]
+    assert st["delivered"] == 1.0
+    for r in st["ranks"]:
+        assert r["device"].startswith("cuda")
+        for name in ("pq_adc_slots", "bitonic_topk", "pq_lut"):
+            assert r["launches"][name] > 0, (r["rank"], name)
+

@@ -3,11 +3,9 @@
 * ``src/repro_torch`` and ``chip_smoke.py`` import neither JAX nor the
   reference package (AST scan);
 * asking for CUDA without a card raises — nothing falls back to the CPU;
-* modes the port does not carry yet (the tier's process mode) raise
-  ``NotImplementedError`` naming their ROADMAP item; the modes carried
-  since (the lazy queue LUT, the sector layout) refuse only what the
-  reference refuses (a lazy refill without the codebook, a sector shard of
-  an index built without sector codes).
+* the modes carried since slice 1 (the lazy queue LUT, the sector layout)
+  refuse only what the reference refuses (a lazy refill without the
+  codebook, a sector shard of an index built without sector codes).
 """
 
 import ast
@@ -19,11 +17,9 @@ import torch
 
 from repro_torch import device as tdev
 from repro_torch.api.engine import BatonEngine
-from repro_torch.configs.batann_serve import ExecSpec
 from repro_torch.core import baton, ref
 from repro_torch.data import synth
 from repro_torch.serve_async import AsyncServingTier, runtime
-from repro_torch.serve_async.queues import ProcessInbox
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro")
@@ -46,6 +42,7 @@ def _imported_modules(path):
 def test_port_imports_neither_jax_nor_reference():
     files = _port_files()
     assert len(files) > 15
+    assert ROOT / "src" / "repro_torch" / "launch" / "spmd.py" in files
     bad = [f"{p.relative_to(ROOT)}:{line}: {mod}"
            for p in files for line, mod in _imported_modules(p)
            if mod.split(".")[0] in FORBIDDEN]
@@ -127,16 +124,6 @@ def test_modes_not_carried_raise(kw):
 
 def test_dense_adc_route_is_carried():
     assert baton.BatonParams(adc_impl="mxu").adc_impl == "mxu"
-
-
-def test_exec_process_mode_raises():
-    """ExecSpec(mode="process") is a valid config; the tier refuses it."""
-    spec = ExecSpec(workers=1, mode="process")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        AsyncServingTier(None, baton.BatonParams(), n_workers=1,
-                         mode=spec.mode)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ProcessInbox()
 
 
 def _tiny(codes_mode="replicated", partitioner="ldg"):
