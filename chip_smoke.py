@@ -5,6 +5,7 @@
     python3 chip_smoke.py --n 100000 --queries 256   # a quicker rehearsal
     python3 chip_smoke.py --profile build/profile   # + a profiled batch
     python3 chip_smoke.py --engine-only   # phases 1-6 only, no result line
+    python3 chip_smoke.py --seed 1   # phase 19's weights, doc tokens, requests
 
 Phases (any failure exits non-zero; nothing is swallowed):
 
@@ -144,6 +145,25 @@ Phases (any failure exits non-zero; nothing is swallowed):
     included), each rank's run and load seconds and host syncs, and QPS,
     beside ``run_simulated``'s; the same ranks (one spawn) then run the
     einsum LUT against phase 5, whose differing ids are a finding.
+19. the LM tenant: qwen2-0.5b at its published widths (24 layers, d 896,
+    14 query and 2 KV heads of 64, d_ff 4864, vocab 151,936, QKV bias,
+    theta 1e6; 494,005,120 parameters by ``param_count``), float32 weights
+    from a ``torch.Generator`` seeded with ``--seed``, behind
+    ``RAGSystem.answer`` over phase 4's index (``Deployment.from_parts``
+    with phase 7's ``mxu_tiled``/``bitonic``/LUT-kernel params) and
+    (1,000,000, 64) doc tokens: 64 requests (a document vector plus 0.01
+    noise, 32 prompt tokens, two retrieved chunks: 160 prompt tokens),
+    ``max_new`` 64; (64, 64) tokens, ``delivered == 1.0``, the retrieval's
+    ids, dists and five counters bitwise equal to ``Deployment.search`` on
+    the batch, the slot ADC, top-k and LUT kernels launched; prints the
+    rank-1 hit rate, the seconds of retrieval, prefill and decode, decode
+    tokens/s and peak device memory.  For 8 of the requests, prefill and a
+    greedy ``decode_step`` loop: tokens equal to ``generate``'s, logits
+    within 1e-3 of ``forward`` over the 224-token sequence at every step,
+    tokens equal to ``forward``'s except where its top-2 gap is below 2e-3
+    (counted).  Then the nine other LM families at smoke size: ``generate``
+    equal to stepwise-``forward`` greedy tokens, prefill logits within 1e-4
+    of ``forward``'s last position.
 
 Kernel launch counts are set to 0 just before each path runs and read just
 after: the slot ADC and the top-k on phase 5, the dense ADC and the LUT
@@ -153,8 +173,8 @@ ADC and the top-k on phase 11's scatter-gather kernel route; the dense
 ADC, the LUT kernel and the top-k in the worker processes of phase 17 and
 the slot ADC in those of its einsum run (counted in the children, sent
 back at close); the slot ADC, the top-k and the LUT kernel in every rank
-of phase 18 (counted in each rank after its warm-up).  The line
-before the last is the kernels' JSON record; the last line is
+of phase 18 (counted in each rank after its warm-up); the slot ADC, the
+top-k and the LUT kernel on phase 19's retrieval.  The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result, when
 no CUDA device is visible or the ``repro_torch`` package is not beside it.
 """
@@ -1235,6 +1255,170 @@ def spmd_phase(cfg, eng, queries, tiled_lut, tiled_lut_sp, kernel_sp,
     log(f"[spmd] phase 18 took {time.perf_counter() - t_phase:.1f} s")
 
 
+def lm_phase(torch, eng, ds, sp, seed: int) -> dict:
+    """Phase 19: the LM tenant (qwen2-0.5b at its published widths) behind
+    ``RAGSystem.answer`` over phase 4's index on the kernel route, checked
+    against ``Deployment.search`` and ``forward``; the nine other LM
+    families at smoke size.  Returns the retrieval's kernel launches."""
+    from repro_torch import kernels
+    from repro_torch.api import STAT_KEYS, Deployment
+    from repro_torch.configs.batann_serve import ServeConfig
+    from repro_torch.configs.registry import (
+        ARCH_IDS, get_config, get_smoke_config)
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import decode, rag
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("qwen2-0.5b")
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    named = dict(params.named_parameters())
+    n_el = sum(w.numel() for w in named.values())
+    n_bias = sum(w.numel() for k, w in named.items()
+                 if k.rsplit(".", 1)[-1] in ("bq", "bk", "bv"))
+    n_bytes = sum(w.numel() * w.element_size() for w in named.values())
+    if cfg.param_count() != 494_005_120 or n_el - n_bias != cfg.param_count():
+        raise AssertionError(f"qwen2-0.5b: {n_el} elements, {n_bias} of them "
+                             f"QKV bias, param_count {cfg.param_count()}")
+    log(f"[lm] qwen2-0.5b: L={cfg.n_layers} d={cfg.d_model} "
+        f"H={cfg.n_heads} KV={cfg.n_kv_heads} dh={cfg.d_head} "
+        f"d_ff={cfg.d_ff} V={cfg.vocab_size}; param_count() "
+        f"{cfg.param_count():,} = {n_el:,} elements less {n_bias:,} QKV-bias "
+        f"elements (param_count leaves them out); {n_bytes:,} bytes "
+        f"float32 ({n_bytes / 2**30:.2f} GiB); initialised on the card from "
+        f"seed {seed} in {t_init:.2f} s")
+
+    rng = np.random.default_rng(seed)
+    doc_tokens = rng.integers(0, cfg.vocab_size, size=(ds.n, 64)).astype(
+        np.int32)
+    dep = Deployment.from_parts(ServeConfig(search=sp), eng)
+    system = rag.RAGSystem(deployment=dep, doc_tokens=doc_tokens,
+                           lm_cfg=cfg, lm_params=params)
+    n_req, n_prompt, max_new = 64, 32, 64
+    target = rng.integers(0, ds.n, size=n_req)
+    queries = (ds.vectors[target] + 0.01 * rng.normal(
+        size=(n_req, ds.dim))).astype(np.float32)
+    prompts = rng.integers(0, cfg.vocab_size, size=(n_req, n_prompt)).astype(
+        np.int32)
+    t0 = time.perf_counter()
+    system.answer(queries[:8], prompts[:8], max_new=2)
+    log(f"[lm] warm-up answer (8 requests, 2 tokens): "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    kernels.reset_launch_counts()
+    timings: dict = {}
+    out, ids, stats = system.answer(queries, prompts, max_new=max_new,
+                                    timings=timings)
+    launches = kernels.launch_counts()
+    want = dep.search(queries)
+    _, dists, _ = system.retrieve(queries)
+    if out.shape != (n_req, max_new) or out.dtype != np.int32:
+        raise AssertionError(f"answer returned {out.shape} {out.dtype}")
+    if stats["delivered"] != 1.0:
+        raise AssertionError(f"RAG retrieval delivered {stats['delivered']}")
+    if not (ids.tobytes() == want.ids.tobytes()
+            and dists.tobytes() == want.dists.tobytes()
+            and all((stats[k] == want.stats[k]).all() for k in STAT_KEYS)):
+        raise AssertionError("the RAG retrieval differs from "
+                             "Deployment.search on the same batch")
+    for name in ("pq_adc_slots", "bitonic_topk", "pq_lut"):
+        if launches[name] == 0:
+            raise AssertionError(f"kernel {name} was never launched on the "
+                                 f"RAG retrieval")
+    hit = float((ids[:, 0] == target).mean())
+    s_prompt = 2 * doc_tokens.shape[1] + n_prompt
+    decode_tps = n_req * (max_new - 1) / timings["decode"]
+    log(f"[lm] RAGSystem.answer: {n_req} requests, {s_prompt} prompt tokens "
+        f"(2 chunks of 64 + {n_prompt}), max_new {max_new}: tokens "
+        f"{out.shape}; rank-1 hit rate {hit:.4f}; retrieval "
+        f"{timings['retrieve']:.3f} s, prefill {timings['prefill']:.3f} s "
+        f"({n_req * s_prompt / timings['prefill']:.1f} prompt tokens/s), "
+        f"decode {timings['decode']:.3f} s ({decode_tps:.1f} tokens/s over "
+        f"{max_new - 1} steps); delivered {stats['delivered']}; ids, dists "
+        f"and five counters bitwise equal to Deployment.search; launches "
+        f"{launches}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # decode through the cache against the full forward, 8 requests
+    dev = torch.device("cuda")
+    n8, s_max = 8, s_prompt + max_new
+    ctx_tokens = doc_tokens[np.clip(ids[:n8, :2], 0, None)].reshape(n8, -1)
+    full = np.mod(np.concatenate([ctx_tokens, prompts[:n8]], axis=1),
+                  cfg.vocab_size).astype(np.int32)
+    seq = torch.from_numpy(full).to(dev)
+    logits, caches = T.prefill(cfg, params, {"tokens": seq}, s_max)
+    steps, toks = [logits], [torch.argmax(logits, dim=-1).to(torch.int32)]
+    for i in range(max_new - 1):
+        logits, caches = T.decode_step(cfg, params, toks[-1][:, None],
+                                       s_prompt + i, caches)
+        steps.append(logits)
+        toks.append(torch.argmax(logits, dim=-1).to(torch.int32))
+    loop = torch.stack(toks, dim=1)
+    if not np.array_equal(loop.cpu().numpy(), out[:n8]):
+        row, step = np.argwhere(loop.cpu().numpy() != out[:n8])[0]
+        top2 = torch.topk(steps[step][row], 2).values
+        raise AssertionError(
+            f"the decode_step loop's tokens differ from generate's, first at "
+            f"request {row} step {step} (the loop's top-2 gap there "
+            f"{float(top2[0] - top2[1]):.3e})")
+    with torch.no_grad():
+        fwd = T.forward(cfg, params, {"tokens": torch.cat([seq, loop], 1)[
+            :, :s_max]})[:, s_prompt - 1:s_max - 1]
+    step_logits = torch.stack(steps, dim=1)
+    err = float((step_logits - fwd).abs().max())
+    top2 = torch.topk(fwd, 2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    differ = torch.argmax(fwd, dim=-1).to(torch.int32) != loop
+    if err > 1e-3:
+        raise AssertionError(f"decode logits differ from forward's by {err}")
+    if bool((differ & (gap >= 2e-3)).any()):
+        raise AssertionError("a decoded token differs from forward's where "
+                             "its top-2 gap is at least 2e-3")
+    log(f"[lm] decode vs forward, {n8} requests x {max_new} steps over "
+        f"{s_max} positions: max |dlogit| {err:.3e} (limit 1e-3); "
+        f"{int(differ.sum())} tokens differ from forward's argmax, all where "
+        f"its top-2 gap < 2e-3 (smallest gap {float(gap.min()):.3e}); the "
+        f"loop's tokens equal generate's")
+    del params, caches, fwd, step_logits, steps, system
+    torch.cuda.empty_cache()
+
+    # the nine other families at smoke size
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for arch in ARCH_IDS:
+        if arch in ("qwen2-0.5b", "batann-serve"):
+            continue
+        scfg = get_smoke_config(arch)
+        sparams = T.init_params(scfg, seed=seed, device="cuda")
+        p = torch.randint(0, scfg.vocab_size, (2, 8), generator=g,
+                          device=dev, dtype=torch.int32)
+        got = decode.generate(scfg, sparams, p, max_new=6)
+        toks8 = p
+        with torch.no_grad():
+            for _ in range(6):
+                nxt = T.forward(scfg, sparams, {"tokens": toks8})[:, -1]
+                toks8 = torch.cat(
+                    [toks8, torch.argmax(nxt, -1, keepdim=True).to(
+                        torch.int32)], dim=1)
+            fwd_last = T.forward(scfg, sparams, {"tokens": p})[:, -1]
+        first, _ = T.prefill(scfg, sparams, {"tokens": p}, 14)
+        d_pre = float((first - fwd_last).abs().max())
+        if not torch.equal(got, toks8[:, 8:]):
+            raise AssertionError(f"{arch}: generate differs from stepwise "
+                                 f"forward")
+        if d_pre > 1e-4:
+            raise AssertionError(f"{arch}: prefill logits differ from "
+                                 f"forward's by {d_pre}")
+        log(f"[lm smoke] {arch} ({scfg.family}): generate equal to stepwise "
+            f"forward over 6 tokens; prefill vs forward max |dlogit| "
+            f"{d_pre:.2e}")
+    log(f"[lm] phase 19 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=1_000_000)
@@ -1243,6 +1427,9 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="after the checks, profile one kernel-route batch "
                          "with torch.profiler and write its op table to DIR")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of phase 19's LM weights, doc tokens and "
+                         "requests")
     ap.add_argument("--engine-only", action="store_true",
                     help="stop after phase 6 and print no result: times the "
                          "engine's path alone, as an older tree's script "
@@ -1498,6 +1685,8 @@ def main(argv=None) -> int:
                   {"res": closed, "busy": busy}, einsum_res)
     # --- 18. SPMD: one rank a partition over gloo ------------------------------
     spmd_phase(cfg, eng, batches[1], tiled_lut, tiled_lut_sp, kernel_sp, kern)
+    # --- 19. the LM tenant: RAG over the baton engine --------------------------
+    lm_launches = lm_phase(torch, eng, ds, tiled_lut_sp, args.seed)
 
     if args.profile:
         profile_batch(torch, eng, batches[1], kernel_sp, args.profile)
@@ -1514,16 +1703,18 @@ def main(argv=None) -> int:
     record = {"kernels": [
         entry("pq_adc_slots", "src/repro_torch/kernels/pq_adc/adc_slots.cu",
               "src/repro/kernels/pq_adc/kernel.py:100",
-              launches["pq_adc_slots"], adc["slice"]),
+              launches["pq_adc_slots"] + lm_launches["pq_adc_slots"],
+              adc["slice"]),
         entry("bitonic_topk", "src/repro_torch/kernels/topk/topk.cu",
               "src/repro/kernels/topk/kernel.py:62",
-              launches["bitonic_topk"], topk["beam"]),
+              launches["bitonic_topk"] + lm_launches["bitonic_topk"],
+              topk["beam"]),
         entry("pq_adc", "src/repro_torch/kernels/pq_adc/adc.cu",
               "src/repro/kernels/pq_adc/kernel.py:63",
               tier_launches["pq_adc"], dense["tier"]),
         entry("pq_lut", "src/repro_torch/kernels/pq_lut/lut.cu",
               "src/repro/kernels/pq_lut/kernel.py:27",
-              tier_launches["pq_lut"], lut["Q=1"]),
+              tier_launches["pq_lut"] + lm_launches["pq_lut"], lut["Q=1"]),
     ]}
     for tag, row in [("pq_adc " + t, dense[t]) for t in dense] + \
             [("bitonic_topk " + t, topk[t]) for t in topk] + \
@@ -1536,8 +1727,12 @@ def main(argv=None) -> int:
             f"bound {b:.5f} ms ({by})")
     log("[report] record line times bitonic_topk at the beam merge")
     log(f"[report] record line: pq_adc at the tier's (1, 8, 2048) and "
-        f"pq_lut at Q=1 with their launches on the tier's closed-loop run; "
-        f"pq_adc_slots and bitonic_topk with theirs on phase 5")
+        f"pq_lut at Q=1 with their launches on the tier's closed-loop run "
+        f"({tier_launches['pq_lut']}) plus phase 19's retrieval "
+        f"({lm_launches['pq_lut']}); pq_adc_slots and bitonic_topk with "
+        f"theirs on phase 5 ({launches['pq_adc_slots']}, "
+        f"{launches['bitonic_topk']}) plus phase 19's "
+        f"({lm_launches['pq_adc_slots']}, {lm_launches['bitonic_topk']})")
     log(f"[report] total {time.perf_counter() - t_start:.1f} s; card: {smi}")
     log(smi)
     print(json.dumps(record), flush=True)

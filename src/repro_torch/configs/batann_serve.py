@@ -504,3 +504,36 @@ SERVE_CONFIGS = {
         index=IndexSpec(engine="scatter_gather"),
     ),
 }
+
+
+# ---------------------------------------------------------------------------
+# BatannServeConfig — the production-mesh dry-run workload, the reference's
+# (``configs/registry.py`` resolves ``batann-serve`` to it)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class BatannServeConfig:
+    name: str = "batann-serve"
+    family: str = "vector-search"
+    n_total: int = 1_000_000_000      # 1B points (BIGANN scale)
+    dim: int = 128
+    pq_m: int = 32                    # 32-byte codes (paper §5)
+    pq_k: int = 256
+    graph_r: int = 64                 # Vamana R (paper §6)
+    L: int = 128
+    W: int = 8
+    k: int = 10
+    pool: int = 256
+    slots: int = 64                   # states resident per device
+    pair_cap: int = 2
+    result_cap: int = 4
+    n_starts: int = 8
+
+
+CONFIG = BatannServeConfig()
+
+
+def smoke_config():
+    return BatannServeConfig(n_total=4096, dim=32, pq_m=8, pq_k=64,
+                             graph_r=12, L=16, W=4, slots=8)

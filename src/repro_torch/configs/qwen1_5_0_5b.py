@@ -1,0 +1,17 @@
+"""Qwen1.5-0.5B [hf:Qwen/Qwen1.5-0.5B] — GQA kv=16 (MHA), QKV bias."""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen1.5-0.5b", family="dense",
+    n_layers=24, d_model=1024, n_heads=16, n_kv_heads=16, d_head=64,
+    d_ff=2816, vocab_size=151_936,
+    qkv_bias=True, rope_theta=1_000_000.0, tie_embeddings=True,
+)
+
+
+def smoke_config():
+    return ModelConfig(
+        name="qwen1.5-smoke", family="dense",
+        n_layers=2, d_model=64, n_heads=4, n_kv_heads=4, d_head=16,
+        d_ff=96, vocab_size=256, qkv_bias=True, tie_embeddings=True,
+    )

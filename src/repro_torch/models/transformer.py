@@ -1,0 +1,319 @@
+"""Unified decoder LM over all the tenant's families (dense / MoE / SSM /
+hybrid / stub-fronted audio & VLM).
+
+Counterpart of ``repro/models/transformer.py`` in eager PyTorch: the layers
+are ``nn.Module``s in an ``nn.ModuleList`` and a Python loop runs them where
+the reference scans stacked layer params.  Per-layer structure (gemma3's
+5:1 local:global pattern) is a Python bool per layer.  ``RunCtx`` keeps the
+knobs that mean something in eager PyTorch; the reference's mesh, sharding
+rules, scan unrolling and remat are not carried.
+
+Cache layouts are the reference's: K/V (L, B, S_max, KV, dh) for attention;
+a conv tail (L, B, d_conv-1, C) and a float32 (L, B, H, P, N) state for
+SSM.  ``decode_step`` writes position ``t`` of those tensors in place.
+
+Weights come from :func:`init_params` (a seeded ``torch.Generator`` on the
+device, the reference's scales) or from the reference's own tree through
+:func:`params_from_tree`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import types
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.config import ModelConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class RunCtx:
+    compute_dtype: torch.dtype = torch.float32
+    attn_chunk: int = L.ATTN_CHUNK     # q-chunked attention threshold/size
+    grouped_gqa: bool = False          # decode attention without the
+    #                                    (H/KV)x KV-cache head expansion
+
+
+class LayerParams(nn.Module):
+    """One layer: ``ln1``; ``ln2`` when it has an FFN; ``attn`` and/or
+    ``ssm``; ``mlp`` or ``moe`` (+ ``shared_mlp``).  Absent parts are None."""
+
+    fields = ("ln1", "ln2", "attn", "ssm", "mlp", "moe", "shared_mlp")
+
+    def __init__(self, ln1, ln2=None, attn=None, ssm=None, mlp=None,
+                 moe=None, shared_mlp=None):
+        super().__init__()
+        self.ln1 = nn.Parameter(ln1)
+        self.ln2 = None if ln2 is None else nn.Parameter(ln2)
+        self.attn, self.ssm, self.mlp = attn, ssm, mlp
+        self.moe, self.shared_mlp = moe, shared_mlp
+
+
+class Params(nn.Module):
+    """embed (V, D); ``layers`` (n_layers ``LayerParams``); ln_f (D,); head
+    (D, V) when untied, else None."""
+
+    def __init__(self, embed, layers, ln_f, head=None):
+        super().__init__()
+        self.embed = nn.Parameter(embed)
+        self.layers = nn.ModuleList(layers)
+        self.ln_f = nn.Parameter(ln_f)
+        self.head = None if head is None else nn.Parameter(head)
+
+
+class Caches(NamedTuple):
+    k: Optional[torch.Tensor]          # (L, B, S_max, KV, dh)
+    v: Optional[torch.Tensor]
+    conv: Optional[torch.Tensor]       # (L, B, d_conv-1, C)
+    ssm: Optional[torch.Tensor]        # (L, B, H, P, N) float32
+
+
+def _has_attn(cfg: ModelConfig) -> bool:
+    return cfg.family != "ssm"
+
+
+def _has_ssm(cfg: ModelConfig) -> bool:
+    return cfg.family in ("ssm", "hybrid")
+
+
+def _has_dense_mlp(cfg: ModelConfig) -> bool:
+    return cfg.moe is None and cfg.family != "ssm" and cfg.d_ff > 0
+
+
+def _is_global_flags(cfg: ModelConfig) -> list[bool]:
+    """Layer i is global when i % global_every == global_every - 1 (all
+    layers are global when ``global_every`` is 0)."""
+    if cfg.global_every:
+        return [i % cfg.global_every == cfg.global_every - 1
+                for i in range(cfg.n_layers)]
+    return [True] * cfg.n_layers
+
+
+def init_layer(cfg: ModelConfig, gen: torch.Generator, dtype) -> LayerParams:
+    d = cfg.d_model
+    return LayerParams(
+        ln1=L.zeros(gen, (d,), dtype),
+        ln2=L.zeros(gen, (d,), dtype)
+        if (_has_dense_mlp(cfg) or cfg.moe) else None,
+        attn=L.init_attn(cfg, gen, dtype) if _has_attn(cfg) else None,
+        ssm=ssm_mod.init_ssm(cfg, gen, dtype) if _has_ssm(cfg) else None,
+        mlp=L.init_mlp(d, cfg.d_ff, gen, dtype)
+        if _has_dense_mlp(cfg) else None,
+        moe=moe_mod.init_moe(cfg, gen, dtype) if cfg.moe else None,
+        shared_mlp=L.init_mlp(d, cfg.moe.d_expert * cfg.moe.n_shared, gen,
+                              dtype)
+        if (cfg.moe and cfg.moe.n_shared) else None,
+    )
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
+                dtype=torch.float32) -> Params:
+    """Random weights at the reference's scales (embed N(0, 0.02²), each
+    matrix N(0, 1/fan_in), norms and biases 0), drawn on ``device`` from a
+    ``torch.Generator`` seeded with ``seed``.  The reference draws from
+    JAX's stream, so the two packages' weights differ; carry the reference's
+    across with :func:`params_from_tree` to compare them."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    embed = (torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
+                         device=dev) * 0.02).to(dtype)
+    layers = [init_layer(cfg, gen, dtype) for _ in range(cfg.n_layers)]
+    head = None
+    if not cfg.tie_embeddings:
+        head = L.normal(gen, (cfg.d_model, cfg.vocab_size), cfg.d_model,
+                        dtype)
+    return Params(embed=embed, layers=layers,
+                  ln_f=L.zeros(gen, (cfg.d_model,), dtype), head=head)
+
+
+def params_from_tree(cfg: ModelConfig, tree, device="cuda") -> Params:
+    """The port's model from the reference's ``Params`` tree with numpy
+    leaves (layer leaves stacked (n_layers, ...)), read by attribute name."""
+    dev = resolve_device(device)
+
+    def t(a):
+        return None if a is None else torch.from_numpy(np.array(a)).to(dev)
+
+    def group(cls, sub, i):
+        if sub is None:
+            return None
+        return cls(**{f: None if getattr(sub, f) is None
+                      else t(getattr(sub, f)[i]) for f in cls.fields})
+
+    tl = tree.layers
+    layers = [LayerParams(
+        ln1=t(tl.ln1[i]), ln2=None if tl.ln2 is None else t(tl.ln2[i]),
+        attn=group(L.AttnParams, tl.attn, i),
+        ssm=group(ssm_mod.SSMParams, tl.ssm, i),
+        mlp=group(L.MLPParams, tl.mlp, i),
+        moe=group(moe_mod.MoEParams, tl.moe, i),
+        shared_mlp=group(L.MLPParams, tl.shared_mlp, i),
+    ) for i in range(cfg.n_layers)]
+    return Params(embed=t(tree.embed), layers=layers, ln_f=t(tree.ln_f),
+                  head=t(tree.head))
+
+
+# ---------------------------------------------------------------------------
+# forward passes
+# ---------------------------------------------------------------------------
+
+
+def _cast_tree(mod, dt):
+    """``mod`` with its floating tensors in the compute dtype ``dt`` (a
+    namespace of the same fields; ``mod`` itself when nothing changes)."""
+    if all(w.dtype == dt for w in mod.parameters() if w.is_floating_point()):
+        return mod
+
+    def leaf(v):
+        if v is None:
+            return None
+        if isinstance(v, nn.Module):
+            return _cast_tree(v, dt)
+        return v.to(dt) if v.is_floating_point() else v
+
+    return types.SimpleNamespace(
+        **{f: leaf(getattr(mod, f)) for f in mod.fields})
+
+
+def _ffn(cfg: ModelConfig, lp, x):
+    """The residual FFN half of a layer (MLP or MoE), if it has one."""
+    if lp.ln2 is None:
+        return x
+    h2 = L.rms_norm(x, lp.ln2, cfg.norm_eps)
+    if cfg.moe is not None:
+        f = moe_mod.moe_forward(cfg, lp.moe, h2, shared_mlp=lp.shared_mlp)
+    else:
+        f = L.mlp(lp.mlp, h2)
+    return x + f
+
+
+def _block(cfg: ModelConfig, lp, x, positions, is_global: bool,
+           ctx: RunCtx, caches: "Caches | None" = None, i: int = 0):
+    """One layer over a full sequence; with ``caches``, also fill layer
+    ``i``'s cache from the K/V and SSM state this pass computes."""
+    lp = _cast_tree(lp, ctx.compute_dtype)
+    h = L.rms_norm(x, lp.ln1, cfg.norm_eps)
+    mix = None
+    if _has_attn(cfg):
+        q, k, v = L._project_qkv(cfg, lp.attn, h, positions,
+                                 L.layer_theta(cfg, is_global))
+        if caches is not None:
+            caches.k[i, :, :k.shape[1]] = k
+            caches.v[i, :, :v.shape[1]] = v
+        mix = L.attend(cfg, lp.attn, q, k, v, positions, is_global,
+                       q_chunk=ctx.attn_chunk)
+    if _has_ssm(cfg):
+        s_out, st = ssm_mod.ssm_forward(cfg, lp.ssm, h)
+        if caches is not None:
+            caches.conv[i] = st.conv
+            caches.ssm[i] = st.ssm
+        mix = s_out if mix is None else 0.5 * (mix + s_out)
+    return _ffn(cfg, lp, x + mix)
+
+
+def embed_inputs(cfg: ModelConfig, params: Params, batch: dict,
+                 ctx: RunCtx):
+    """tokens (B, S) int -> (B, S, D); or precomputed ``"embeds"`` (the
+    audio and vision families' stub frontends)."""
+    if "embeds" in batch:
+        return batch["embeds"].to(ctx.compute_dtype)
+    return params.embed[batch["tokens"].long()].to(ctx.compute_dtype)
+
+
+def _logits(params: Params, x):
+    w = params.embed.T if params.head is None else params.head
+    return x @ w.to(x.dtype)
+
+
+def _positions(b: int, s: int, device):
+    return torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
+
+
+def forward(cfg: ModelConfig, params: Params, batch: dict,
+            ctx: RunCtx = RunCtx()):
+    """Full-sequence forward -> logits (B, S, V)."""
+    x = embed_inputs(cfg, params, batch, ctx)
+    positions = _positions(x.shape[0], x.shape[1], x.device)
+    for lp, is_g in zip(params.layers, _is_global_flags(cfg)):
+        x = _block(cfg, lp, x, positions, is_g, ctx)
+    x = L.rms_norm(x, params.ln_f, cfg.norm_eps)
+    return _logits(params, x)
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill + decode
+# ---------------------------------------------------------------------------
+
+
+def init_caches(cfg: ModelConfig, batch: int, s_max: int, ctx: RunCtx,
+                device="cuda") -> Caches:
+    dev = resolve_device(device)
+    dt = ctx.compute_dtype
+    k = v = conv = ssm = None
+    if _has_attn(cfg):
+        shape = (cfg.n_layers, batch, s_max, cfg.n_kv_heads, cfg.d_head)
+        k = torch.zeros(shape, dtype=dt, device=dev)
+        v = torch.zeros(shape, dtype=dt, device=dev)
+    if _has_ssm(cfg):
+        c = cfg.d_inner_ssm + 2 * cfg.ssm.d_state
+        conv = torch.zeros((cfg.n_layers, batch, cfg.ssm.d_conv - 1, c),
+                           dtype=dt, device=dev)
+        ssm = torch.zeros((cfg.n_layers, batch, cfg.n_ssm_heads,
+                           cfg.ssm.headdim, cfg.ssm.d_state),
+                          dtype=torch.float32, device=dev)
+    return Caches(k=k, v=v, conv=conv, ssm=ssm)
+
+
+@torch.no_grad()
+def decode_step(cfg: ModelConfig, params: Params, tokens, t: int,
+                caches: Caches, ctx: RunCtx = RunCtx()):
+    """One decode step.  tokens: (B, 1) int (or ``{"embeds": (B, 1, D)}``);
+    ``t`` the current position; caches hold 0..t-1 and get position ``t``
+    written in place.  Returns (logits (B, V), caches)."""
+    if isinstance(tokens, dict):
+        x = embed_inputs(cfg, params, tokens, ctx)
+    else:
+        x = params.embed[tokens.long()].to(ctx.compute_dtype)
+    for i, (lp, is_g) in enumerate(zip(params.layers,
+                                       _is_global_flags(cfg))):
+        lp = _cast_tree(lp, ctx.compute_dtype)
+        h = L.rms_norm(x, lp.ln1, cfg.norm_eps)
+        mix = None
+        if _has_attn(cfg):
+            mix, _, _ = L.attention_decode(
+                cfg, lp.attn, h, t, caches.k[i], caches.v[i], is_g,
+                grouped=ctx.grouped_gqa)
+        if _has_ssm(cfg):
+            s_out, st = ssm_mod.ssm_decode(
+                cfg, lp.ssm, h,
+                ssm_mod.SSMState(conv=caches.conv[i], ssm=caches.ssm[i]))
+            caches.conv[i] = st.conv
+            caches.ssm[i] = st.ssm
+            mix = s_out if mix is None else 0.5 * (mix + s_out)
+        x = _ffn(cfg, lp, x + mix)
+    x = L.rms_norm(x, params.ln_f, cfg.norm_eps)
+    return _logits(params, x)[:, 0], caches
+
+
+@torch.no_grad()
+def prefill(cfg: ModelConfig, params: Params, batch: dict, s_max: int,
+            ctx: RunCtx = RunCtx()):
+    """Process the prompt; return (last-token logits (B, V), caches filled
+    with positions 0..S-1 of S_max)."""
+    x = embed_inputs(cfg, params, batch, ctx)
+    b, s, _ = x.shape
+    caches = init_caches(cfg, b, s_max, ctx, device=x.device)
+    positions = _positions(b, s, x.device)
+    for i, (lp, is_g) in enumerate(zip(params.layers,
+                                       _is_global_flags(cfg))):
+        x = _block(cfg, lp, x, positions, is_g, ctx, caches, i)
+    x = L.rms_norm(x, params.ln_f, cfg.norm_eps)
+    return _logits(params, x[:, -1]), caches

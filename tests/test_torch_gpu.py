@@ -545,3 +545,83 @@ def test_spmd_on_card_matches_run_simulated(cuda, tmp_path):
         for name in ("pq_adc_slots", "bitonic_topk", "pq_lut"):
             assert r["launches"][name] > 0, (r["rank"], name)
 
+
+
+LM_SMOKE_ARCHS = ["qwen2-0.5b", "qwen3-14b", "qwen1.5-0.5b", "gemma3-27b",
+                  "mamba2-130m", "kimi-k2-1t-a32b", "grok-1-314b",
+                  "hymba-1.5b", "musicgen-large", "internvl2-2b"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", LM_SMOKE_ARCHS)
+def test_lm_smoke_on_card(cuda, arch):
+    """Every LM family at smoke size on the card: greedy ``generate``
+    equals argmax over repeated full forwards, prefill's logits and a
+    decode step's equal ``forward``'s within 1e-4, and the card's forward
+    equals the host's on the same weights within 1e-4."""
+    import copy
+
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import decode
+
+    cfg = get_smoke_config(arch)
+    params = T.init_params(cfg, seed=1, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 10), generator=g,
+                            device=cuda, dtype=torch.int32)
+    got = decode.generate(cfg, params, prompts, max_new=4)
+    toks = prompts
+    with torch.no_grad():
+        for _ in range(4):
+            nxt = T.forward(cfg, params, {"tokens": toks})[:, -1].argmax(-1)
+            toks = torch.cat([toks, nxt[:, None].to(toks.dtype)], dim=1)
+        full = T.forward(cfg, params, {"tokens": toks})
+    assert torch.equal(got, toks[:, 10:])
+    logits, caches = T.prefill(cfg, params, {"tokens": prompts}, 14)
+    assert torch.allclose(logits, full[:, 9], rtol=0, atol=1e-4)
+    step, _ = T.decode_step(cfg, params, toks[:, 10:11], 10, caches)
+    assert torch.allclose(step, full[:, 10], rtol=0, atol=1e-4)
+    host = copy.deepcopy(params).cpu()
+    with torch.no_grad():
+        on_host = T.forward(cfg, host, {"tokens": toks.cpu()})
+    assert torch.allclose(full.cpu(), on_host, rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_rag_demo_on_card(cuda):
+    """``build_demo`` on the card: perturbed docs found at rank 1 (the
+    reference's bar), every query delivered, and the kernel route's
+    retrieval bitwise equal to the plain route's."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.serving import rag
+
+    sys_ = rag.build_demo(n_docs=800, d=32, p=4, seed=0, device=cuda)
+    idx = sys_.index
+    vecs = idx.part_vectors[idx.node2part.long(),
+                            idx.node2local.long()].cpu().numpy()
+    rng = np.random.default_rng(0)
+    target = rng.integers(0, 800, size=16)
+    q = (vecs[target] + 0.01 * rng.normal(size=(16, 32))).astype(np.float32)
+    prompt = rng.integers(0, sys_.lm_cfg.vocab_size, size=(16, 4)).astype(
+        np.int32)
+    out, ids, stats = sys_.answer(q, prompt, max_new=4)
+    assert out.shape == (16, 4) and stats["delivered"] == 1.0
+    assert (ids[:, 0] == target).mean() >= 0.75
+    dep = sys_.deployment
+    kernel_sp = dataclasses.replace(dep.config.search, adc_impl="mxu_tiled",
+                                    merge_impl="bitonic", lut_impl="kernel")
+    kernels.reset_launch_counts()
+    fast = dep.engine.search(q, kernel_sp)
+    counts = kernels.launch_counts()
+    plain = dep.engine.search(q, dataclasses.replace(kernel_sp,
+                                                     adc_impl="gather",
+                                                     merge_impl="lexsort"))
+    assert np.array_equal(fast.ids, plain.ids)
+    assert np.array_equal(fast.dists, plain.dists)
+    for name in ("pq_adc_slots", "bitonic_topk", "pq_lut"):
+        assert counts[name] > 0, name

@@ -42,7 +42,10 @@ def _imported_modules(path):
 def test_port_imports_neither_jax_nor_reference():
     files = _port_files()
     assert len(files) > 15
-    assert ROOT / "src" / "repro_torch" / "launch" / "spmd.py" in files
+    for mod in ("launch/spmd.py", "models/transformer.py", "models/ssm.py",
+                "models/moe.py", "serving/rag.py", "serving/decode.py",
+                "configs/registry.py", "configs/qwen2_0_5b.py"):
+        assert ROOT / "src" / "repro_torch" / mod in files, mod
     bad = [f"{p.relative_to(ROOT)}:{line}: {mod}"
            for p in files for line, mod in _imported_modules(p)
            if mod.split(".")[0] in FORBIDDEN]
@@ -88,6 +91,23 @@ def test_every_engine_and_the_deployment_default_to_cuda(no_cuda):
             cls()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         deployment.Deployment.from_config(SERVE_CONFIGS["batann-serve-sg"])
+
+
+def test_lm_entry_points_default_to_cuda(no_cuda):
+    """The LM tenant's constructors run on the card unless the caller asks
+    for the CPU: without one they raise."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import transformer
+    from repro_torch.serving import rag
+
+    cfg = get_smoke_config("qwen2-0.5b")
+    for call in (lambda: transformer.init_params(cfg),
+                 lambda: transformer.params_from_tree(cfg, None),
+                 lambda: transformer.init_caches(cfg, 1, 4,
+                                                 transformer.RunCtx()),
+                 lambda: rag.build_demo(n_docs=50, d=8)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
 
 
 def test_env_record_names_what_is_missing(no_cuda, monkeypatch):
