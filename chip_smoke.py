@@ -5,7 +5,8 @@
     python3 chip_smoke.py --n 100000 --queries 256   # a quicker rehearsal
     python3 chip_smoke.py --profile build/profile   # + a profiled batch
     python3 chip_smoke.py --engine-only   # phases 1-6 only, no result line
-    python3 chip_smoke.py --seed 1   # phase 19's weights, doc tokens, requests
+    python3 chip_smoke.py --seed 1   # phases 19-20's weights, tokens, requests
+    python3 chip_smoke.py --train-only   # phases 1 and 20 only, no result line
 
 Phases (any failure exits non-zero; nothing is swallowed):
 
@@ -17,8 +18,9 @@ Phases (any failure exits non-zero; nothing is swallowed):
    time kernel, plain version and one library call (device time from CUDA
    events, median of 25 single calls after warm-up, inputs resident in L2)
    and the kernel alone (its mean duration in torch.profiler; where three
-   traces in a row hold no device work, the mean of calls queued back to
-   back between CUDA events, and the line says so): the slot
+   traces in a row hold no device work or under half of the launches,
+   the mean of calls queued back to back between CUDA events, and the
+   line says so): the slot
    ADC at the engine's (S, C) = (256, 256), the scatter-gather search's
    (8192, 256) (P * B = 8 * 1024 branches), the tier's (8, 256) and (1,
    256), the ragged (100, 200) and a LUT past shared memory (M = 256):
@@ -50,9 +52,10 @@ Phases (any failure exits non-zero; nothing is swallowed):
    differ from the einsum LUT (phase 5) are printed;
 8. the executable tier, closed loop: ``AsyncServingTier`` with 4 worker
    threads over the P = 8 partitions, micro-batch 8, the phase-7 params,
-   serving the first batch; requires every query completed and answers
-   bitwise equal to phase 7; prints throughput, latency percentiles,
-   hand-offs, wire bytes per hand-off against ``envelope_bytes``, host
+   serving the first 256 queries of batch 1 (``TIER_QUERIES``; the
+   threads serve ~7 QPS under the GIL, so the whole batch took ~150 s);
+   requires every query completed and answers bitwise equal to phase 7;
+   prints throughput, latency percentiles, hand-offs, wire bytes per hand-off against ``envelope_bytes``, host
    syncs and kernel launches; then its first 256 queries with the einsum
    LUT against phase 5, whose parity is printed (a finding, not a
    requirement);
@@ -114,8 +117,9 @@ Phases (any failure exits non-zero; nothing is swallowed):
 16. live mutation: ``Deployment.run_mutating`` over phase 4's engine with
     the fig22 mix (insert 0.10, delete 0.05, consolidate, l_insert 64,
     ingest 500 writes/s, recall_tol 0.10, seed 0, ``sim.send_rate`` 2000)
-    on the kernel route over phase 4's dataset, its searches and ground
-    truth over batch 1:
+    on the kernel route over the first ``MUTATE_ROWS`` = 250,000 rows of
+    phase 4's dataset (at all 1M rows the phase took ~250-275 s), its
+    searches and ground truth over batch 1:
     ``parity`` true, no deleted id returned, ``n_live == n_base +
     n_inserted - n_deleted``, ``mut_recall >= rebuilt_recall - 0.10``,
     ingest conserved, exactly ``MUTATE_FIELDS``, and the slot-ADC and
@@ -164,6 +168,28 @@ Phases (any failure exits non-zero; nothing is swallowed):
     (counted).  Then the nine other LM families at smoke size: ``generate``
     equal to stepwise-``forward`` greedy tokens, prefill logits within 1e-4
     of ``forward``'s last position.
+20. the LM tenant's training path: qwen2-0.5b at its published widths and
+    depth, float32 without TF32, weights from ``--seed`` on the card,
+    batch 8 x seq 128, ``RunCtx(remat=True)``, AdamW with the reference's
+    defaults and ``total_steps`` the steps run.  ``train_loop.train`` over
+    20 steps of ``token_batches``, then the reference's copy task (labels
+    = tokens drawn from the 256 ids of its test's vocabulary, lr 3e-3,
+    warmup 5) over 20 steps from fresh weights; for each, the warm median
+    seconds a step, tokens/s, model FLOP/s (6NT, and 8NT with remat) and
+    its share of the float32 peak, peak device memory, the bytes of
+    params, grads and moments and the host syncs a step (torch's sync
+    debug mode); one more step under torch.profiler gives the card's
+    busy share and the GEMMs' part of it.  Seven checks: (1) every loss finite, the
+    first within 1.0 of ln V; (2) the copy task's last loss below its
+    first; (3) remat off against on: loss and grads bitwise (else grads
+    within rtol 1e-6, the largest difference printed); (4) microbatches 2
+    against 1: loss within 1e-3, params within rtol 2e-2 / atol 2e-4; (5)
+    6 steps against 3, a checkpoint in ``build/`` (removed after), a
+    restore and 3 more: params within rtol 1e-4 / atol 1e-5; (6) one step
+    at batch 2 x seq 64 on the card against the host: loss, grad norm and
+    params within rtol 1e-4 / atol 1e-6; (7) bfloat16 moments: m and v
+    bfloat16, the loss finite.  The training path launches none of the
+    four kernels (counted and printed).
 
 Kernel launch counts are set to 0 just before each path runs and read just
 after: the slot ADC and the top-k on phase 5, the dense ADC and the LUT
@@ -198,6 +224,15 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 SPIN_CYCLES = 5_000_000       # ~2.5 ms at the H100's boost clock
 STAT_KEYS = ("hops", "inter_hops", "dist_comps", "reads", "lut_builds")
+# phase 20's copy task draws its tokens from the first COPY_VOCAB ids, the
+# vocabulary of the qwen2 smoke config that the reference's copy test
+# (tests/test_training.py) trains on
+COPY_VOCAB = 256
+# depth cuts that keep the script inside half its time limit: the thread
+# tier's closed loop serves the first TIER_QUERIES queries of batch 1, live
+# mutation runs over the first MUTATE_ROWS rows of phase 4's dataset
+TIER_QUERIES = 256
+MUTATE_ROWS = 250_000
 # Earlier times of the kernels, quoted from PERF.md's kernel table (NVIDIA
 # H100 80GB HBM3, 700 W, CUDA events, median of 25 calls, inputs in L2), by
 # (kernel, phase-3 shape): (ms, the commit whose kernels were measured) --
@@ -262,17 +297,21 @@ def kernel_us(fn, name: str, torch, reps: int = 20,
     ``time_ms`` brackets too: ``alone_us``, and ``alone_by`` for how it
     was taken.
 
-    A trace that holds no device work at all is a failure of the tracing,
-    not of the kernel (a card's first traces sometimes come back empty):
-    it is taken again, up to ``tries`` times, and after that the time is
-    the mean of ``reps`` calls queued back to back behind a spin kernel,
-    between two CUDA events ("events": the kernel plus its launch gap).
-    A trace with device work but too few of the named kernels fails."""
+    A trace that holds no device work at all, or fewer than half of the
+    named launches, is a failure of the tracing, not of the kernel (a
+    card's first traces sometimes come back empty, and once one held 2
+    of 20 slot-ADC launches): it is taken again, up to ``tries`` times,
+    and after that the time is the mean of ``reps`` calls queued back to
+    back behind a spin kernel, between two CUDA events ("events": the
+    kernel plus its launch gap).  It fails when a trace holds more than
+    ``reps`` named launches, or when traces hold device work and not one
+    named launch (the kernel never ran)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    traced = named = 0
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -284,11 +323,17 @@ def kernel_us(fn, name: str, torch, reps: int = 20,
             continue
         ev = [e for e in dev if name in e.key]
         calls = sum(e.count for e in ev)
-        if not reps // 2 <= calls <= reps:
+        if calls > reps:
             raise AssertionError(f"the profiler saw {calls} {name} launches "
                                  f"of {reps}")
-        return dict(alone_us=sum(e.self_device_time_total for e in ev)
-                    / calls, alone_by="profiler")
+        if calls >= reps // 2:
+            return dict(alone_us=sum(e.self_device_time_total for e in ev)
+                        / calls, alone_by="profiler")
+        traced += 1
+        named += calls
+    if traced and not named:
+        raise AssertionError(f"{traced} traces held device work and no "
+                             f"{name} launch")
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     torch.cuda._sleep(SPIN_CYCLES)
@@ -305,7 +350,7 @@ def alone(row) -> str:
     if row["alone_by"] == "profiler":
         return f"{row['alone_us']:.2f} us alone"
     return (f"{row['alone_us']:.2f} us back to back by events, the "
-            f"profiler's traces held no device work")
+            f"profiler's traces held no device work or too few launches")
 
 
 def earlier(row) -> str:
@@ -1021,19 +1066,22 @@ def sector_phase(torch, eng, ds, spec, cfg, queries, kern, mxu, kernel_sp,
 
 
 def mutate_phase(torch, eng, ds, cfg, queries) -> None:
-    """Phase 16: ``Deployment.run_mutating`` with the fig22 mix over phase
-    4's dataset, on the kernel route."""
+    """Phase 16: ``Deployment.run_mutating`` with the fig22 mix over the
+    first ``MUTATE_ROWS`` rows of phase 4's dataset, on the kernel route."""
     from repro_torch import kernels
     from repro_torch.api.deployment import MUTATE_FIELDS, Deployment
     from repro_torch.core import mutate as mutate_mod
 
     t_phase = time.perf_counter()
+    ds = dataclasses.replace(ds, vectors=ds.vectors[:MUTATE_ROWS],
+                             raw=ds.raw[:MUTATE_ROWS])
     mcfg = cfg.with_updates(
         sim={"send_rate": 2000.0, "n_arrivals": 2000},
         mutate={"insert_frac": 0.10, "delete_frac": 0.05,
                 "consolidate": True, "l_insert": 64, "ingest_rate": 500.0,
                 "recall_tol": 0.10, "seed": 0})
-    log(f"[mutate] fig22 mix over phase 4's {ds.n} rows, batch 1 "
+    log(f"[mutate] fig22 mix over the first {ds.n} rows of phase 4's "
+        f"dataset, batch 1 "
         f"({len(queries)} queries), kernel route: "
         f"{json.dumps(dataclasses.asdict(mcfg.mutate))}")
     # a spy around MutableIndex.search: the launches of each call (the
@@ -1419,6 +1467,307 @@ def lm_phase(torch, eng, ds, sp, seed: int) -> dict:
     return launches
 
 
+def _max_excess(got: dict, want: dict, rtol: float, atol: float):
+    """The largest |got - want| - (atol + rtol |want|) over named tensors
+    (<= 0 when all are within), the largest |got - want| and its name."""
+    excess, err, where = -float("inf"), 0.0, None
+    for name, w in want.items():
+        d = (got[name].to(w.device) - w).abs()
+        excess = max(excess, float((d - atol - rtol * w.abs()).max()))
+        if float(d.max()) >= err:
+            err, where = float(d.max()), name
+    return excess, err, where
+
+
+def traced_step(torch, step, warm_s: float) -> str:
+    """``step()`` once under torch.profiler: the card's busy time (the sum
+    of its kernels' and copies' durations) against the warm step time, and
+    the GEMMs' part of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        return ("one traced step: the trace held no device work (busy share "
+                "not measured)")
+    busy = sum(e.self_device_time_total for e in dev) / 1e6
+    gemm = sum(e.self_device_time_total for e in dev
+               if "gemm" in e.key.lower()) / 1e6
+    return (f"one traced step: the card busy {busy:.4f} s, "
+            f"{busy / warm_s:.3f} of the warm median step ({warm_s:.4f} s); "
+            f"GEMMs {gemm:.4f} s of it; "
+            f"{sum(e.count for e in dev)} kernels and copies")
+
+
+def train_phase(torch, seed: int, smi: str) -> None:
+    """Phase 20: the LM tenant's training path, qwen2-0.5b at its published
+    widths, float32 without TF32, batch 8 x seq 128, remat, AdamW; its
+    seven checks raise on failure."""
+    import copy
+    import shutil
+    import warnings
+
+    from repro_torch import kernels
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import synth
+    from repro_torch.models import transformer as T
+    from repro_torch.serve_async.runtime import to_device
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import train_loop as TL
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = get_config("qwen2-0.5b")
+    steps, b, s = 20, 8, 128
+    ctx = T.RunCtx(remat=True)
+    kernels.reset_launch_counts()
+    torch.cuda.empty_cache()
+
+    def named(params):
+        return {k: w.detach() for k, w in params.named_parameters()}
+
+    def syncs_of(fn):
+        """``fn()`` and the synchronizing CUDA calls it made (torch's sync
+        debug mode warns on each)."""
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return out, sum("synchroniz" in str(w.message) for w in seen)
+
+    def report(tag, step_s, n_el, moment_bytes, syncs, n_steps):
+        warm = statistics.median(step_s[2:])
+        tokens = b * s
+        flops6 = 6 * n_el * tokens / warm
+        flops8 = 8 * n_el * tokens / warm
+        log(f"[train] {tag}: {n_steps} steps, warm median {warm:.4f} s a "
+            f"step ({len(step_s) - 2} steps after 2), {tokens / warm:.1f} "
+            f"tokens/s; model FLOP/s 6NT {flops6 / 1e12:.2f} TFLOP/s "
+            f"({flops6 / F32_OPS_PER_S:.3f} of the 67 TFLOP/s float32 "
+            f"non-tensor peak), 8NT with remat {flops8 / 1e12:.2f} TFLOP/s "
+            f"({flops8 / F32_OPS_PER_S:.3f}); peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; params "
+            f"{4 * n_el:,} B, grads {4 * n_el:,} B, moments "
+            f"{moment_bytes:,} B; host syncs {syncs / n_steps:.2f} a step "
+            f"({syncs} over {n_steps}); card: {smi}")
+        return warm
+
+    # run A: train over token_batches (the launcher's defaults, full size)
+    tcfg = TL.TrainConfig(batch=b, seq_len=s, steps=steps, seed=seed,
+                          opt=O.AdamWConfig(total_steps=steps))
+    torch.cuda.reset_peak_memory_stats()
+    timings: dict = {}
+    (params, st, losses), syncs = syncs_of(lambda: TL.train(
+        cfg, tcfg, ctx, device="cuda", timings=timings))
+    nm = named(params)
+    n_el = sum(w.numel() for w in nm.values())
+    m_bytes = sum(w.numel() * w.element_size() for w in st.m.parameters())
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"[train] a loss is not finite: {losses}")
+    ln_v = float(np.log(cfg.vocab_size))
+    if abs(losses[0] - ln_v) > 1.0:
+        raise AssertionError(f"[train] first loss {losses[0]} is not within "
+                             f"1.0 of ln V = {ln_v:.4f}")
+    log(f"[train] qwen2-0.5b, {n_el:,} elements float32, remat, batch {b} x "
+        f"seq {s}, AdamW defaults (total_steps {steps}): losses "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, all finite, the first within "
+        f"1.0 of ln V = {ln_v:.4f} (check 1)")
+    warm = report("token_batches", timings["step_s"], n_el, 2 * m_bytes,
+                  syncs, steps)
+    batch = {k: to_device(v, dev) for k, v in next(
+        synth.token_batches(cfg.vocab_size, b, s, 1, seed=seed)).items()}
+    step_a = TL.make_train_step(cfg, tcfg, ctx)
+    log("[train] token_batches: " + traced_step(
+        torch, lambda: step_a(params, st, batch), warm))
+    del params, st, nm
+
+    # run B: the reference's copy task (labels = tokens, its AdamW) from
+    # fresh weights, tokens drawn from the COPY_VOCAB ids its test draws from
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ocfg = O.AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=steps)
+    step_fn = TL.make_train_step(
+        cfg, TL.TrainConfig(batch=b, seq_len=s, steps=steps, opt=ocfg), ctx)
+    rng = np.random.default_rng(seed)
+
+    def copy_task():
+        p = T.init_params(cfg, seed=seed + 1, device=dev)
+        o = O.init(ocfg, p)
+        out, times, t0 = [], [], time.perf_counter()
+        for _ in range(steps):
+            toks = to_device(rng.integers(0, COPY_VOCAB, size=(b, s))
+                             .astype(np.int32), dev)
+            p, o, m = step_fn(p, o, {"tokens": toks, "labels": toks})
+            out.append(float(m["loss"]))
+            t = time.perf_counter()
+            times.append(t - t0)
+            t0 = t
+        return p, out, times
+
+    (params, c_losses, c_times), syncs = syncs_of(copy_task)
+    if not (np.isfinite(c_losses).all() and c_losses[-1] < c_losses[0]):
+        raise AssertionError(f"[train] copy task: losses {c_losses}")
+    log(f"[train] copy task (labels = tokens drawn from {COPY_VOCAB} ids; "
+        f"lr 3e-3, warmup 5): losses {c_losses[0]:.4f} -> "
+        f"{c_losses[-1]:.4f}, the last below the first (check 2; ln "
+        f"{COPY_VOCAB} = {np.log(COPY_VOCAB):.4f}: below it the copy itself "
+        f"is learnt); every 5th: {[round(x, 4) for x in c_losses[::5]]}")
+    report("copy task", c_times, n_el, 2 * m_bytes, syncs, steps)
+
+    # check 3: remat against none, one step's loss and grads
+    plist = list(params.parameters())
+    names = [k for k, _ in params.named_parameters()]
+    out = {}
+    for remat in (False, True):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = T.loss_fn(cfg, params, batch, T.RunCtx(remat=remat))
+        grads = torch.autograd.grad(loss, plist)
+        torch.cuda.synchronize()
+        out[remat] = (loss.detach(), dict(zip(names, grads)),
+                      time.perf_counter() - t0,
+                      torch.cuda.max_memory_allocated() / 2**30)
+    (l0, g0, t_0, mem0), (l1, g1, t_1, mem1) = out[False], out[True]
+    bitwise = torch.equal(l0, l1) and all(torch.equal(g0[k], g1[k])
+                                          for k in g0)
+    if bitwise:
+        how = "loss and every grad bitwise equal"
+    else:
+        excess, err, where = _max_excess(g1, g0, 1e-6, 0.0)
+        if not torch.equal(l0, l1) or excess > 0:
+            raise AssertionError(f"[train] remat changes the loss "
+                                 f"({float(l0)} vs {float(l1)}) or a grad "
+                                 f"beyond rtol 1e-6: max |diff| {err:.3e} "
+                                 f"at {where}")
+        how = (f"loss bitwise equal, grads within rtol 1e-6 (not bitwise: "
+               f"max |diff| {err:.3e} at {where})")
+    log(f"[train] remat off vs on, one loss+grad (check 3): {how}; "
+        f"{t_0:.3f} s vs {t_1:.3f} s, peak device memory {mem0:.2f} vs "
+        f"{mem1:.2f} GiB")
+    del out, g0, g1, grads, loss
+
+    # check 4: microbatches 2 against 1 on the same global batch
+    res = {}
+    for mb in (1, 2):
+        p = copy.deepcopy(params)
+        t = TL.TrainConfig(batch=b, seq_len=s, steps=1, microbatches=mb,
+                           opt=O.AdamWConfig(total_steps=steps))
+        p, _, m = TL.make_train_step(cfg, t, ctx)(
+            p, O.init(t.opt, p), batch)
+        res[mb] = (float(m["loss"]), named(p))
+    excess, err, where = _max_excess(res[2][1], res[1][1], 2e-2, 2e-4)
+    if abs(res[1][0] - res[2][0]) >= 1e-3 or excess > 0:
+        raise AssertionError(f"[train] microbatches 2 vs 1: loss "
+                             f"{res[2][0]} vs {res[1][0]}, params max |diff| "
+                             f"{err:.3e} at {where}")
+    log(f"[train] microbatches 2 vs 1 (check 4): loss {res[2][0]:.6f} vs "
+        f"{res[1][0]:.6f} (|diff| {abs(res[1][0] - res[2][0]):.2e} < 1e-3), "
+        f"updated params within rtol 2e-2 / atol 2e-4 (max |diff| "
+        f"{err:.3e} at {where})")
+    del res, params
+    torch.cuda.empty_cache()
+
+    # check 5: 2k steps against k, a checkpoint, restore, k more
+    k = 3
+    d = os.path.join(ROOT, "build", "train_ckpt_smoke")
+    shutil.rmtree(d, ignore_errors=True)
+    base = dict(batch=b, seq_len=s, seed=seed,
+                opt=O.AdamWConfig(total_steps=2 * k))
+    try:
+        full, _, full_losses = TL.train(
+            cfg, TL.TrainConfig(steps=2 * k, **base), ctx, device="cuda",
+            verbose=False)
+        full = named(full)
+        t0 = time.perf_counter()
+        TL.train(cfg, TL.TrainConfig(steps=k, ckpt_every=k, ckpt_dir=d,
+                                     **base), ctx, device="cuda",
+                 verbose=False)
+        t_part = time.perf_counter() - t0
+        ck_bytes = sum(os.path.getsize(os.path.join(r, f))
+                       for r, _, fs in os.walk(d) for f in fs)
+        t0 = time.perf_counter()
+        resumed, st, res_losses = TL.train(
+            cfg, TL.TrainConfig(steps=2 * k, ckpt_dir=d, **base), ctx,
+            device="cuda", verbose=False)
+        t_res = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    excess, err, where = _max_excess(named(resumed), full, 1e-4, 1e-5)
+    if st.step != 2 * k or excess > 0:
+        raise AssertionError(f"[train] resume: step {st.step}, params max "
+                             f"|diff| {err:.3e} at {where}")
+    log(f"[train] resume (check 5): {2 * k} steps against {k} + a "
+        f"checkpoint ({ck_bytes:,} bytes in build/, {t_part:.1f} s with "
+        f"the save) + restore + {k} ({t_res:.1f} s with the restore): "
+        f"params within rtol 1e-4 / atol 1e-5 (max |diff| {err:.3e} at "
+        f"{where}); losses {[round(x, 4) for x in full_losses[k:]]} vs "
+        f"{[round(x, 4) for x in res_losses]}; directory removed")
+    del full, resumed, st
+    torch.cuda.empty_cache()
+
+    # check 6: the card against the host, one step at batch 2 x seq 64
+    small = {kk: v[:2, :64] for kk, v in batch.items()}
+    ocfg = O.AdamWConfig(total_steps=steps)
+    t1 = TL.TrainConfig(batch=2, seq_len=64, steps=1, opt=ocfg)
+    p_card = T.init_params(cfg, seed=seed + 2, device=dev)
+    p_host = T.params_from_tree(cfg, T.tree_from_params(cfg, p_card),
+                                device="cpu")
+    side = {}
+    for name, p, bt in (("card", p_card, small),
+                        ("host", p_host, {kk: v.cpu()
+                                          for kk, v in small.items()})):
+        t0 = time.perf_counter()
+        p, _, m = TL.make_train_step(cfg, t1, ctx)(p, O.init(ocfg, p), bt)
+        side[name] = (float(m["loss"]), float(m["grad_norm"]), named(p),
+                      time.perf_counter() - t0)
+    (lc, gc, pc, tc), (lh, gh, ph, th) = side["card"], side["host"]
+    excess, err, where = _max_excess(pc, ph, 1e-4, 1e-6)
+    d_loss, d_gn = abs(lc - lh), abs(gc - gh)
+    if d_loss > 1e-6 + 1e-4 * abs(lh) or d_gn > 1e-6 + 1e-4 * abs(gh) \
+            or excess > 0:
+        raise AssertionError(f"[train] card vs host: loss {lc} vs {lh}, "
+                             f"grad_norm {gc} vs {gh}, params max |diff| "
+                             f"{err:.3e} at {where} (excess {excess:.3e})")
+    log(f"[train] card vs host, one step at batch 2 x seq 64 (check 6): "
+        f"loss {lc:.6f} vs {lh:.6f} (|diff| {d_loss:.2e}), grad_norm "
+        f"{gc:.6f} vs {gh:.6f} (|diff| {d_gn:.2e}), updated params within "
+        f"rtol 1e-4 / atol 1e-6 (max |diff| {err:.3e} at {where}); the "
+        f"step took {tc:.2f} s on the card, {th:.2f} s on the host")
+    del side, pc, ph, p_host
+
+    # check 7: bfloat16 moments
+    ocfg = O.AdamWConfig(total_steps=steps, moment_dtype="bfloat16")
+    o = O.init(ocfg, p_card)
+    p_card, o, m = TL.make_train_step(
+        cfg, TL.TrainConfig(batch=b, seq_len=s, steps=1, opt=ocfg), ctx)(
+        p_card, o, batch)
+    dtypes = {w.dtype for w in list(o.m.parameters()) + list(
+        o.v.parameters())}
+    loss = float(m["loss"])
+    if dtypes != {torch.bfloat16} or not np.isfinite(loss):
+        raise AssertionError(f"[train] bfloat16 moments: dtypes {dtypes}, "
+                             f"loss {loss}")
+    mb16 = sum(w.numel() * w.element_size() for w in o.m.parameters())
+    log(f"[train] moment_dtype bfloat16 (check 7): m and v bfloat16 "
+        f"({2 * mb16:,} B against {2 * m_bytes:,} B float32), one step's "
+        f"loss {loss:.4f} finite")
+    del p_card, o
+    torch.cuda.empty_cache()
+    launched = kernels.launch_counts()
+    log(f"[train] kernel launches in phase 20: {launched} (the training "
+        f"path runs none of the four)")
+    log(f"[train] phase 20 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=1_000_000)
@@ -1428,12 +1777,15 @@ def main(argv=None) -> int:
                     help="after the checks, profile one kernel-route batch "
                          "with torch.profiler and write its op table to DIR")
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of phase 19's LM weights, doc tokens and "
+                    help="seed of phases 19-20's LM weights, tokens and "
                          "requests")
     ap.add_argument("--engine-only", action="store_true",
                     help="stop after phase 6 and print no result: times the "
                          "engine's path alone, as an older tree's script "
                          "that ends there does (for A/B runs in one call)")
+    ap.add_argument("--train-only", action="store_true",
+                    help="run phases 1 and 20 only and print no result: "
+                         "the training slice alone, a quick check")
     args = ap.parse_args(argv)
 
     import torch
@@ -1463,6 +1815,10 @@ def main(argv=None) -> int:
     log("[env]", json.dumps(repro_torch.env_record()))
     smi = nvidia_smi_line()
     log(f"[env] nvidia-smi: {smi}")
+    if args.train_only:
+        train_phase(torch, args.seed, smi)
+        log("[report] --train-only: ran phases 1 and 20")
+        return 0
 
     # --- 2. build the kernels ------------------------------------------------
     t0 = time.perf_counter()
@@ -1606,12 +1962,12 @@ def main(argv=None) -> int:
         kernels.reset_launch_counts()
         sampler = busy_start()
         try:
-            closed = tier.search(batches[1])
+            closed = tier.search(batches[1][:TIER_QUERIES])
         finally:
             busy = busy_stop(sampler)
         tier_launches = kernels.launch_counts()
         log(tier_line("tier closed", closed, tier_launches) + f"; {busy}")
-        if closed.completed != len(batches[1]):
+        if closed.completed != TIER_QUERIES:
             raise AssertionError(f"closed loop completed {closed.completed}")
         if not tier_parity(closed, mxu):
             raise AssertionError("tier (closed loop) answers differ from the "
@@ -1687,6 +2043,8 @@ def main(argv=None) -> int:
     spmd_phase(cfg, eng, batches[1], tiled_lut, tiled_lut_sp, kernel_sp, kern)
     # --- 19. the LM tenant: RAG over the baton engine --------------------------
     lm_launches = lm_phase(torch, eng, ds, tiled_lut_sp, args.seed)
+    # --- 20. the LM tenant's training path ------------------------------------
+    train_phase(torch, args.seed, smi)
 
     if args.profile:
         profile_batch(torch, eng, batches[1], kernel_sp, args.profile)

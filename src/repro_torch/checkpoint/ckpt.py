@@ -9,12 +9,14 @@ Fault-tolerance contract: a crash at any point leaves either the previous
 LATEST or the new one — never a torn checkpoint.
 
 The reference flattens trees with ``jax.tree_util``; this package keeps its
-own flattener, which walks dicts in sorted key order and lists and tuples in
-index order (``None`` holds no leaf) and renders each leaf's path as
-``jax.tree_util.keystr`` does (``['name']`` for a dict key, ``[0]`` for a
-sequence item, nested by concatenation).  Tensors are written as numpy
-arrays (``.cpu().numpy()``), so a checkpoint written by either package reads
-in the other.
+own flattener, which walks dicts in sorted key order, NamedTuples in field
+order and other lists and tuples in index order (``None`` holds no leaf) and
+renders each leaf's path as ``jax.tree_util.keystr`` does (``['name']`` for
+a dict key, ``.name`` for a NamedTuple field, ``[0]`` for a sequence item,
+nested by concatenation): a training checkpoint's ``(Params, OptState)``
+reads ``[0].layers.attn.wq``, ``[1].step``, ``[1].m.embed``.  Tensors are
+written as numpy arrays (``.cpu().numpy()``), so a checkpoint written by
+either package reads in the other.
 """
 
 from __future__ import annotations
@@ -30,6 +32,10 @@ import torch
 _MAX_SHARD_BYTES = 1 << 30
 
 
+def _is_namedtuple(tree) -> bool:
+    return isinstance(tree, tuple) and hasattr(type(tree), "_fields")
+
+
 def _flatten_with_paths(tree, prefix: str = "") -> list:
     """[(path, leaf)] in ``jax.tree_util.tree_flatten_with_path`` order."""
     if tree is None:
@@ -37,6 +43,9 @@ def _flatten_with_paths(tree, prefix: str = "") -> list:
     if isinstance(tree, dict):
         return [item for k in sorted(tree)
                 for item in _flatten_with_paths(tree[k], f"{prefix}[{k!r}]")]
+    if _is_namedtuple(tree):
+        return [item for k, v in zip(tree._fields, tree)
+                for item in _flatten_with_paths(v, f"{prefix}.{k}")]
     if isinstance(tree, (list, tuple)):
         return [item for i, v in enumerate(tree)
                 for item in _flatten_with_paths(v, f"{prefix}[{i}]")]
@@ -50,6 +59,8 @@ def _unflatten(tree_like, leaves):
         return None
     if isinstance(tree_like, dict):
         return {k: _unflatten(tree_like[k], leaves) for k in sorted(tree_like)}
+    if _is_namedtuple(tree_like):
+        return type(tree_like)(*(_unflatten(v, leaves) for v in tree_like))
     if isinstance(tree_like, (list, tuple)):
         return type(tree_like)(_unflatten(v, leaves) for v in tree_like)
     return next(leaves)

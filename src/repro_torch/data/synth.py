@@ -3,7 +3,8 @@
 A copy of the reference's generator (``repro/data/synth.py``): numpy
 throughout, so one seed gives the same vectors and queries in both
 packages.  Only the optional ground truth runs on the device, through the
-port's ``core.ref.brute_force_knn``.
+port's ``core.ref.brute_force_knn``.  ``token_batches`` is the reference's
+LM pipeline, copied: the same batches for every (seed, step).
 """
 
 from __future__ import annotations
@@ -101,3 +102,17 @@ def make_dataset(
         ds.gt = ref.brute_force_knn(vectors, queries, compute_gt_k,
                                     device=device).cpu().numpy()
     return ds
+
+
+def token_batches(
+    vocab_size: int, batch: int, seq_len: int, n_batches: int, seed: int = 0
+):
+    """Deterministic, shardable, resumable LM data pipeline (synthetic tokens).
+
+    Each batch is derived solely from (seed, step) so a restarted job resumes
+    bit-exactly from its step counter — the property checkpoint/restart needs.
+    """
+    for step in range(n_batches):
+        rng = np.random.default_rng((seed << 20) ^ step)
+        tokens = rng.integers(0, vocab_size, size=(batch, seq_len + 1), dtype=np.int32)
+        yield {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}

@@ -102,7 +102,8 @@ def rms_norm(x, scale, eps: float = 1e-6):
 def rope_angles(positions, d_head: int, theta: float):
     """positions: (...,) int -> cos/sin (..., d_head//2)."""
     half = d_head // 2
-    base = torch.tensor(theta, dtype=torch.float32, device=positions.device)
+    # a fill, not a copy from the host: on a card that would sync the stream
+    base = torch.full((), theta, dtype=torch.float32, device=positions.device)
     freqs = base ** (-torch.arange(0, half, dtype=torch.float32,
                                    device=positions.device) / half)
     ang = positions.to(torch.float32)[..., None] * freqs

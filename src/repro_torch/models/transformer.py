@@ -6,7 +6,11 @@ are ``nn.Module``s in an ``nn.ModuleList`` and a Python loop runs them where
 the reference scans stacked layer params.  Per-layer structure (gemma3's
 5:1 local:global pattern) is a Python bool per layer.  ``RunCtx`` keeps the
 knobs that mean something in eager PyTorch; the reference's mesh, sharding
-rules, scan unrolling and remat are not carried.
+rules and scan unrolling are not carried.  Its ``remat`` runs each layer
+under ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` over a
+layer): the backward recomputes the layer's activations instead of keeping
+them, and no number changes.  ``forward`` and :func:`loss_fn` keep autograd;
+``prefill`` and ``decode_step`` run without it.
 
 Cache layouts are the reference's: K/V (L, B, S_max, KV, dh) for attention;
 a conv tail (L, B, d_conv-1, C) and a float32 (L, B, H, P, N) state for
@@ -14,11 +18,14 @@ SSM.  ``decode_step`` writes position ``t`` of those tensors in place.
 
 Weights come from :func:`init_params` (a seeded ``torch.Generator`` on the
 device, the reference's scales) or from the reference's own tree through
-:func:`params_from_tree`.
+:func:`params_from_tree`; :func:`tree_from_params` gives that tree back
+(numpy leaves, layer leaves stacked), the layout of the reference's
+gradients and training checkpoints.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import types
 from typing import NamedTuple, Optional
@@ -26,6 +33,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
@@ -40,6 +48,7 @@ class RunCtx:
     attn_chunk: int = L.ATTN_CHUNK     # q-chunked attention threshold/size
     grouped_gqa: bool = False          # decode attention without the
     #                                    (H/KV)x KV-cache head expansion
+    remat: bool = False                # recompute each layer in backward
 
 
 class LayerParams(nn.Module):
@@ -60,6 +69,8 @@ class LayerParams(nn.Module):
 class Params(nn.Module):
     """embed (V, D); ``layers`` (n_layers ``LayerParams``); ln_f (D,); head
     (D, V) when untied, else None."""
+
+    fields = ("embed", "layers", "ln_f", "head")
 
     def __init__(self, embed, layers, ln_f, head=None):
         super().__init__()
@@ -136,11 +147,19 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
 
 def params_from_tree(cfg: ModelConfig, tree, device="cuda") -> Params:
     """The port's model from the reference's ``Params`` tree with numpy
-    leaves (layer leaves stacked (n_layers, ...)), read by attribute name."""
+    leaves (layer leaves stacked (n_layers, ...)), read by attribute name.
+    A 2-byte leaf of no numpy type (bfloat16, as numpy writes it) is read
+    as bfloat16 by its bits."""
     dev = resolve_device(device)
 
     def t(a):
-        return None if a is None else torch.from_numpy(np.array(a)).to(dev)
+        if a is None:
+            return None
+        a = np.array(a)
+        if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+            return torch.from_numpy(a.view(np.int16)).view(
+                torch.bfloat16).to(dev)
+        return torch.from_numpy(a).to(dev)
 
     def group(cls, sub, i):
         if sub is None:
@@ -159,6 +178,61 @@ def params_from_tree(cfg: ModelConfig, tree, device="cuda") -> Params:
     ) for i in range(cfg.n_layers)]
     return Params(embed=t(tree.embed), layers=layers, ln_f=t(tree.ln_f),
                   head=t(tree.head))
+
+
+# the reference's NamedTuples of a parameter tree, by the port's module type
+_TREES = {cls: collections.namedtuple(cls.__name__, cls.fields)
+          for cls in (Params, LayerParams, L.AttnParams, ssm_mod.SSMParams,
+                      L.MLPParams, moe_mod.MoEParams)}
+
+
+def _host(w: torch.Tensor) -> np.ndarray:
+    """A numpy copy of ``w`` (never a view of a parameter that later
+    updates in place); bfloat16 as its bits in a 2-byte void dtype, the
+    bytes numpy writes for the reference's bfloat16 arrays."""
+    w = w.detach().to("cpu", copy=True)
+    if w.dtype == torch.bfloat16:
+        return w.view(torch.int16).numpy().view("V2")
+    return w.numpy()
+
+
+@torch.no_grad()
+def tree_from_params(cfg: ModelConfig, params: Params):
+    """The inverse of :func:`params_from_tree`: the reference's ``Params``
+    layout (its NamedTuple fields, layer leaves stacked (n_layers, ...),
+    absent parts None) with numpy leaves.  Gradients take this layout
+    through ``map_params`` first."""
+
+    def stacked(ws):
+        if ws[0] is None:
+            return None
+        if isinstance(ws[0], nn.Module):
+            return _TREES[type(ws[0])](*(
+                stacked([getattr(w, f) for w in ws]) for f in ws[0].fields))
+        return _host(torch.stack(ws))
+
+    layers = _TREES[LayerParams](*(
+        stacked([getattr(lp, f) for lp in params.layers])
+        for f in LayerParams.fields))
+    return _TREES[Params](
+        embed=_host(params.embed), layers=layers, ln_f=_host(params.ln_f),
+        head=None if params.head is None else _host(params.head))
+
+
+def map_params(fn, params: Params) -> Params:
+    """A model of ``params``' structure whose every tensor is ``fn(w)`` of
+    the tensor ``w`` in its place, with gradients off (optimizer moments)."""
+
+    def rebuild(w):
+        if w is None:
+            return None
+        if isinstance(w, nn.ModuleList):
+            return [rebuild(m) for m in w]
+        if isinstance(w, nn.Module):
+            return type(w)(**{f: rebuild(getattr(w, f)) for f in w.fields})
+        return fn(w)
+
+    return rebuild(params).requires_grad_(False)
 
 
 # ---------------------------------------------------------------------------
@@ -237,15 +311,34 @@ def _positions(b: int, s: int, device):
     return torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
 
 
+def _layer(cfg: ModelConfig, lp, x, positions, is_global: bool,
+           ctx: RunCtx, *cache_args):
+    """:func:`_block`, recomputed in backward when ``ctx.remat``."""
+    if ctx.remat:
+        return checkpoint(_block, cfg, lp, x, positions, is_global, ctx,
+                          *cache_args, use_reentrant=False)
+    return _block(cfg, lp, x, positions, is_global, ctx, *cache_args)
+
+
 def forward(cfg: ModelConfig, params: Params, batch: dict,
             ctx: RunCtx = RunCtx()):
     """Full-sequence forward -> logits (B, S, V)."""
     x = embed_inputs(cfg, params, batch, ctx)
     positions = _positions(x.shape[0], x.shape[1], x.device)
     for lp, is_g in zip(params.layers, _is_global_flags(cfg)):
-        x = _block(cfg, lp, x, positions, is_g, ctx)
+        x = _layer(cfg, lp, x, positions, is_g, ctx)
     x = L.rms_norm(x, params.ln_f, cfg.norm_eps)
     return _logits(params, x)
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch: dict,
+            ctx: RunCtx = RunCtx()):
+    """Mean next-token cross entropy of ``batch["labels"]`` (B, S): float32
+    logits, ``logsumexp - gold``, the mean (the reference's formula)."""
+    logits = forward(cfg, params, batch, ctx).to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, batch["labels"].long()[..., None])[..., 0]
+    return torch.mean(logz - gold)
 
 
 # ---------------------------------------------------------------------------
@@ -314,6 +407,6 @@ def prefill(cfg: ModelConfig, params: Params, batch: dict, s_max: int,
     positions = _positions(b, s, x.device)
     for i, (lp, is_g) in enumerate(zip(params.layers,
                                        _is_global_flags(cfg))):
-        x = _block(cfg, lp, x, positions, is_g, ctx, caches, i)
+        x = _layer(cfg, lp, x, positions, is_g, ctx, caches, i)
     x = L.rms_norm(x, params.ln_f, cfg.norm_eps)
     return _logits(params, x[:, -1]), caches

@@ -625,3 +625,59 @@ def test_rag_demo_on_card(cuda):
     assert np.array_equal(fast.dists, plain.dists)
     for name in ("pq_adc_slots", "bitonic_topk", "pq_lut"):
         assert counts[name] > 0, name
+
+
+@pytest.mark.gpu
+def test_train_step_on_card_matches_host(cuda):
+    """One smoke-size train step (remat, AdamW defaults) on the card
+    against the host from the same weights: loss, grad norm, params and
+    moments within rtol 1e-4, atol 1e-6."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.data import synth
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import train_loop as TL
+
+    cfg = get_smoke_config("qwen2-0.5b")
+    tcfg = TL.TrainConfig(batch=4, seq_len=16, steps=1)
+    batch = next(synth.token_batches(cfg.vocab_size, 4, 16, 1, seed=1))
+    p_card = T.init_params(cfg, seed=3, device=cuda)
+    p_host = T.params_from_tree(cfg, T.tree_from_params(cfg, p_card),
+                                device="cpu")
+    out = {}
+    for name, p in (("card", p_card), ("host", p_host)):
+        dev = next(p.parameters()).device
+        tb = {k: torch.from_numpy(v.copy()).to(dev) for k, v in batch.items()}
+        p, st, m = TL.make_train_step(cfg, tcfg, T.RunCtx(remat=True))(
+            p, O.init(tcfg.opt, p), tb)
+        out[name] = (m, [w.detach().cpu() for mod in (p, st.m, st.v)
+                         for w in mod.parameters()])
+    (mc, wc), (mh, wh) = out["card"], out["host"]
+    for key in ("loss", "grad_norm"):
+        assert torch.allclose(mc[key].cpu(), mh[key], rtol=1e-4, atol=1e-6)
+    assert mc["lr"] == mh["lr"]
+    for a, b in zip(wc, wh, strict=True):
+        assert torch.allclose(a, b, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "hymba-1.5b",
+                                  "kimi-k2-1t-a32b"])
+def test_remat_bitwise_on_card(cuda, arch):
+    """Loss and every gradient bitwise equal with and without remat."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import transformer as T
+
+    cfg = get_smoke_config(arch)
+    params = T.init_params(cfg, seed=4, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16), generator=g,
+                           device=cuda, dtype=torch.int32)
+    batch = {"tokens": tokens, "labels": tokens.roll(-1, dims=1)}
+    plist = list(params.parameters())
+    got = []
+    for remat in (False, True):
+        loss = T.loss_fn(cfg, params, batch, T.RunCtx(remat=remat))
+        got.append([loss.detach()] + list(torch.autograd.grad(loss, plist)))
+    for a, b in zip(*got, strict=True):
+        assert torch.equal(a, b)

@@ -44,7 +44,9 @@ def test_port_imports_neither_jax_nor_reference():
     assert len(files) > 15
     for mod in ("launch/spmd.py", "models/transformer.py", "models/ssm.py",
                 "models/moe.py", "serving/rag.py", "serving/decode.py",
-                "configs/registry.py", "configs/qwen2_0_5b.py"):
+                "configs/registry.py", "configs/qwen2_0_5b.py",
+                "training/optimizer.py", "training/train_loop.py",
+                "launch/train.py"):
         assert ROOT / "src" / "repro_torch" / mod in files, mod
     bad = [f"{p.relative_to(ROOT)}:{line}: {mod}"
            for p in files for line, mod in _imported_modules(p)
@@ -106,6 +108,24 @@ def test_lm_entry_points_default_to_cuda(no_cuda):
                  lambda: transformer.init_caches(cfg, 1, 4,
                                                  transformer.RunCtx()),
                  lambda: rag.build_demo(n_docs=50, d=8)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def test_training_entry_points_default_to_cuda(no_cuda):
+    """The trainer, the opt-state carrier and the launcher run on the card
+    unless asked for the CPU: without one they raise."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.training import optimizer, train_loop
+
+    cfg = get_smoke_config("qwen2-0.5b")
+    for call in (lambda: train_loop.train(cfg, train_loop.TrainConfig(
+                     steps=1), verbose=False),
+                 lambda: optimizer.opt_state_from_tree(cfg, optimizer.OptState(
+                     step=0, m=None, v=None)),
+                 lambda: launch_train.main(["--arch", "qwen2-0.5b",
+                                            "--smoke", "--steps", "1"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 
