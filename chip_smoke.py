@@ -7,6 +7,7 @@
     python3 chip_smoke.py --engine-only   # phases 1-6 only, no result line
     python3 chip_smoke.py --seed 1   # phases 19-20's weights, tokens, requests
     python3 chip_smoke.py --train-only   # phases 1 and 20 only, no result line
+    python3 chip_smoke.py --mesh-only    # phases 1 and 21 only, no result line
 
 Phases (any failure exits non-zero; nothing is swallowed):
 
@@ -52,16 +53,17 @@ Phases (any failure exits non-zero; nothing is swallowed):
    differ from the einsum LUT (phase 5) are printed;
 8. the executable tier, closed loop: ``AsyncServingTier`` with 4 worker
    threads over the P = 8 partitions, micro-batch 8, the phase-7 params,
-   serving the first 256 queries of batch 1 (``TIER_QUERIES``; the
+   serving the first 128 queries of batch 1 (``TIER_QUERIES``; the
    threads serve ~7 QPS under the GIL, so the whole batch took ~150 s);
    requires every query completed and answers bitwise equal to phase 7;
    prints throughput, latency percentiles, hand-offs, wire bytes per hand-off against ``envelope_bytes``, host
    syncs and kernel launches; then its first 256 queries with the einsum
    LUT against phase 5, whose parity is printed (a finding, not a
    requirement);
-9. the executable tier, open loop: 256 Poisson arrivals at half the
-   closed-loop throughput; requires ``offered == completed + rejected`` and
-   parity on the completed ones; prints the same fields;
+9. the executable tier, open loop: ``OPEN_ARRIVALS`` = 64 Poisson
+   arrivals at half the closed-loop throughput; requires ``offered == completed + rejected`` and
+   parity on the completed ones; prints the same fields (its p95 and p99
+   over 64 answers are the top 4 and 1 samples, not tails);
 10. the per-slot engine path: batch 1 with ``fused=False`` (two-pass
     merges, gather ADC), bitwise equal to phase 6 (ids, dists, five
     counters, traces); prints its wall time;
@@ -84,12 +86,13 @@ Phases (any failure exits non-zero; nothing is swallowed):
     probes); ``Deployment.run`` at 0.7 x that saturation for both engines,
     answers bitwise equal to phase 11's, ``offered == completed``,
     ``lost == 0`` and exactly ``SIM_FIELDS`` in ``Report.sim``;
-    ``cluster.latency_vs_rate`` at 0.1, 0.5 and 0.9 of saturation (5000
-    arrivals: mean, p50, p99, achieved QPS); baton's saturation with its
+    ``cluster.latency_vs_rate`` at 0.1, 0.5 and 0.9 of saturation
+    (``SIM_SWEEP_ARRIVALS`` = 1500 arrivals: mean, p50, p99, achieved QPS); baton's saturation with its
     P = 8 partitions folded onto 2, 4 and 8 servers (``Placement.fold``,
     not rebuilt indexes); one baton ``Deployment.run`` per scenario branch
     (warm cache, ``replicas="hot:2"``, a straggler, an elastic schedule, a
-    crash with retries), each conserving its arrivals; the ratio of
+    crash with retries) over the first ``SCENARIO_QUERIES`` = 256 queries,
+    each conserving its arrivals; the ratio of
     baton's saturation to the baseline's.  Every number of this phase is
     modeled: ``io_sim/disk.py``'s model of the paper's CPU/SSD cluster
     replaying traces counted on the card, not a time of the card;
@@ -117,7 +120,7 @@ Phases (any failure exits non-zero; nothing is swallowed):
 16. live mutation: ``Deployment.run_mutating`` over phase 4's engine with
     the fig22 mix (insert 0.10, delete 0.05, consolidate, l_insert 64,
     ingest 500 writes/s, recall_tol 0.10, seed 0, ``sim.send_rate`` 2000)
-    on the kernel route over the first ``MUTATE_ROWS`` = 250,000 rows of
+    on the kernel route over the first ``MUTATE_ROWS`` = 100,000 rows of
     phase 4's dataset (at all 1M rows the phase took ~250-275 s), its
     searches and ground truth over batch 1:
     ``parity`` true, no deleted id returned, ``n_live == n_base +
@@ -190,6 +193,24 @@ Phases (any failure exits non-zero; nothing is swallowed):
     params within rtol 1e-4 / atol 1e-6; (7) bfloat16 moments: m and v
     bfloat16, the loss finite.  The training path launches none of the
     four kernels (counted and printed).
+21. the model on a device mesh, in subprocesses: (a) ``moe_ep`` at
+    grok-1's MoE widths (d 6144, d_expert 32,768, 8 experts in 16 slots,
+    top-2), float32, 2048 tokens (8 x 256), over 4 ranks sharing the card
+    (gloo, sends staged through the host) as EP 4 x TP 1 and EP 2 x TP 2,
+    each rank drawing its own shards of the seeded weights: at a capacity
+    factor of the EP size (no drops) the output against ``moe_dense`` on
+    the same weights in float32 and in float64 (run after the ranks exit;
+    the elements outside rtol 1e-4 / atol 1e-5 of the float32 run counted,
+    ``moe_ep`` required within twice float32's own rounding of both), at
+    1.0 the pairs the experts received against the routing's predicted
+    drops; seconds a call and the bytes of each exchange; (b) one
+    qwen2-0.5b remat step (batch 8 x seq 128) on a 1 x 1 ``DeviceMesh``
+    (NCCL, one rank) with ``ctx.ax`` from ``shardings.make_rules``,
+    bitwise equal to the unmeshed step, its seconds beside
+    ``roofline.analyze``'s terms on the meshed step's counted FLOPs and
+    bytes; (c) ``python -m repro_torch.launch.dryrun`` for qwen2-0.5b
+    train_4k and grok-1-314b decode_32k at 16 x 16 (on the host, side by
+    side, after 21a-b), their records and roofline rows printed.
 
 Kernel launch counts are set to 0 just before each path runs and read just
 after: the slot ADC and the top-k on phase 5, the dense ADC and the LUT
@@ -208,7 +229,9 @@ no CUDA device is visible or the ``repro_torch`` package is not beside it.
 from __future__ import annotations
 
 import argparse
+import atexit
 import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -229,10 +252,23 @@ STAT_KEYS = ("hops", "inter_hops", "dist_comps", "reads", "lut_builds")
 # (tests/test_training.py) trains on
 COPY_VOCAB = 256
 # depth cuts that keep the script inside half its time limit: the thread
-# tier's closed loop serves the first TIER_QUERIES queries of batch 1, live
-# mutation runs over the first MUTATE_ROWS rows of phase 4's dataset
-TIER_QUERIES = 256
-MUTATE_ROWS = 250_000
+# tier's closed loop serves the first TIER_QUERIES queries of batch 1 and
+# its open loop offers OPEN_ARRIVALS arrivals, live
+# mutation runs over the first MUTATE_ROWS rows of phase 4's dataset, the
+# simulator's latency sweep offers SIM_SWEEP_ARRIVALS arrivals a rate and
+# its scenario runs search the first SCENARIO_QUERIES queries
+TIER_QUERIES = 128
+OPEN_ARRIVALS = 64
+MUTATE_ROWS = 100_000
+SIM_SWEEP_ARRIVALS = 1500
+SCENARIO_QUERIES = 256
+# phase 21: moe_ep at grok-1's MoE widths over 8 x 256 tokens; the meshed
+# train step at phase 20's batch x seq; the dry-run cells (qwen2-0.5b
+# train_4k and the MoE cell that traces quickest, on the 16 x 16 mesh)
+MESH_MOE_TOKENS = (8, 256)
+MESH_STEP_TOKENS = (8, 128)
+DRY_RUN_CELLS = (("qwen2-0.5b", "train_4k"), ("grok-1-314b", "decode_32k"))
+DRY_RUN_DIR = os.path.join(ROOT, "build", "dryrun_smoke")
 # Earlier times of the kernels, quoted from PERF.md's kernel table (NVIDIA
 # H100 80GB HBM3, 700 W, CUDA events, median of 25 calls, inputs in L2), by
 # (kernel, phase-3 shape): (ms, the commit whose kernels were measured) --
@@ -829,7 +865,8 @@ def sim_phase(cfg, engines: dict, ds, queries, gt1, reports) -> None:
             f"(card search included)")
         t0 = time.perf_counter()
         sweep = cluster.latency_vs_rate(traces, n_srv, sat[name],
-                                        (0.1, 0.5, 0.9), n_arrivals=5000,
+                                        (0.1, 0.5, 0.9),
+                                        n_arrivals=SIM_SWEEP_ARRIVALS,
                                         seed=1)
         for frac, r in sweep.items():
             if r.completed != r.offered:
@@ -837,8 +874,8 @@ def sim_phase(cfg, engines: dict, ds, queries, gt1, reports) -> None:
             log(f"[sim] {name} at {frac} x saturation = "
                 f"{frac * sat[name]:.1f} QPS: mean {r.mean_s * 1e3:.3f} ms, "
                 f"p50 {r.p50_s * 1e3:.3f}, p99 {r.p99_s * 1e3:.3f} ms, "
-                f"achieved {r.throughput_qps:.1f} QPS (modeled, 5000 "
-                f"arrivals)")
+                f"achieved {r.throughput_qps:.1f} QPS (modeled, "
+                f"{SIM_SWEEP_ARRIVALS} arrivals)")
         log(f"[sim] {name} sweep: {time.perf_counter() - t0:.1f} s of host")
         if name == "baton":
             t0 = time.perf_counter()
@@ -868,7 +905,8 @@ def sim_phase(cfg, engines: dict, ds, queries, gt1, reports) -> None:
                 t0 = time.perf_counter()
                 s = Deployment.from_parts(
                     run_cfg.with_updates(sim=kw), eng, ds).run(
-                        queries, gt1).sim
+                        queries[:SCENARIO_QUERIES],
+                        gt1[:SCENARIO_QUERIES]).sim
                 if s["offered"] != s["completed"] + s["lost"]:
                     raise AssertionError(f"{tag}: offered {s['offered']} != "
                                          f"completed {s['completed']} + lost "
@@ -1768,6 +1806,449 @@ def train_phase(torch, seed: int, smi: str) -> None:
     log(f"[train] phase 20 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# --- phase 21: the model on a device mesh ------------------------------------
+
+
+def moe_tensor(torch, seed: int, key: int, shape, fan: int, dev):
+    """A seeded N(0, 1/fan) float32 tensor, the same in every process that
+    asks for it: its own generator on ``dev``, seeded from (seed, key)."""
+    gen = torch.Generator(device=dev).manual_seed(seed * 1_000_003 + key)
+    return torch.randn(shape, generator=gen, device=dev) / float(np.sqrt(fan))
+
+
+def moe_experts(torch, cfg, seed: int, j: int, slots, tp: int, ti: int, dev):
+    """Matrix ``j`` (0 wg, 1 wu, 2 wd) of the experts in ``slots``, TP
+    slice ``ti`` of ``tp`` along the hidden dim, one slot drawn at a time."""
+    d, fe = cfg.d_model, cfg.moe.d_expert
+    f_loc = fe // tp
+    out = torch.empty((len(slots),) + ((d, f_loc) if j < 2 else (f_loc, d)),
+                      device=dev)
+    for i, s in enumerate(slots):
+        w = moe_tensor(torch, seed, 100 + 3 * s + j,
+                       (d, fe) if j < 2 else (fe, d), d if j < 2 else fe, dev)
+        out[i] = (w[:, ti * f_loc:(ti + 1) * f_loc] if j < 2
+                  else w[ti * f_loc:(ti + 1) * f_loc])
+        del w
+    return out
+
+
+def moe_dense_pair(torch, cfg, seed: int, wr, x, dev):
+    """``moe_dense`` over the 8 real experts' weights (those the ranks
+    draw), in float32 and in float64 (the same values widened); the float32
+    weights are freed before the float64 ones are made."""
+    from repro_torch.models import moe as M
+
+    slots = range(cfg.moe.n_experts)
+
+    def params(dtype):
+        return M.MoEParams(w_router=wr.to(dtype), **{
+            f: moe_experts(torch, cfg, seed, j, slots, 1, 0, dev).to(dtype)
+            for j, f in enumerate(("wg", "wu", "wd"))})
+
+    with torch.no_grad():
+        p = params(torch.float32)
+        d32 = M.moe_dense(cfg, p, x)
+        del p
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        p = params(torch.float64)
+        d64 = M.moe_dense(cfg, p, x.double())
+        del p
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return d32, d64
+
+
+def moe_rank(rank, world, cfg, runs, tokens, seed: int, dev_type: str):
+    """One rank of phase 21a: ``moe_ep`` over a (data, model) mesh of the
+    ``world`` ranks for each (mesh shape, capacity factor) of ``runs``, its
+    shards of the weights drawn on the rank.  Returns (rank 0) every
+    rank's output shard, received pairs and seconds a call."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models import moe as M
+    from repro_torch.models.layers import placements
+
+    dev = torch.device(dev_type, 0) if dev_type == "cuda" else \
+        torch.device("cpu")
+    if dev_type == "cuda":
+        torch.cuda.set_device(dev)     # every rank on the one card
+    b, s = tokens
+    d = cfg.d_model
+    out = []
+    for (ed, tp), cf in runs:
+        c = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cf))
+        mesh = init_device_mesh(dev_type, (ed, tp),
+                                mesh_dim_names=("data", "model"))
+        di, ti = mesh.get_local_rank("data"), mesh.get_local_rank("model")
+        e_loc = c.moe.n_slots // ed
+        slots = range(di * e_loc, (di + 1) * e_loc)
+
+        def dt(t, spec):
+            return DTensor.from_local(t, mesh, placements(mesh, spec),
+                                      run_check=False)
+
+        b_loc = b // ed
+        x = moe_tensor(torch, seed, 2, (b, s, d), 1, dev)[
+            di * b_loc:(di + 1) * b_loc].contiguous()
+        p = M.MoEParams(
+            w_router=dt(moe_tensor(torch, seed, 1, (d, c.moe.n_experts), d,
+                                   dev), (None, None)),
+            wg=dt(moe_experts(torch, c, seed, 0, slots, tp, ti, dev),
+                  ("data", None, "model")),
+            wu=dt(moe_experts(torch, c, seed, 1, slots, tp, ti, dev),
+                  ("data", None, "model")),
+            wd=dt(moe_experts(torch, c, seed, 2, slots, tp, ti, dev),
+                  ("data", "model", None)))
+        xd = dt(x, ("data", None, None))
+        counts: dict = {}
+        times = []
+        with torch.no_grad():
+            for i in range(4):           # a warm-up call, then 3 timed
+                if dev_type == "cuda":
+                    torch.cuda.synchronize()
+                dist.barrier()
+                t0 = time.perf_counter()
+                y = M.moe_ep(c, p, xd, mesh, ("data",), counts=counts)
+                if dev_type == "cuda":
+                    torch.cuda.synchronize()
+                if i:
+                    times.append(time.perf_counter() - t0)
+        rec = {"data": di, "model": ti, "received": int(counts["received"]),
+               "call_s": statistics.median(times),
+               "y": y.to_local().cpu() if ti == 0 else None}
+        gathered = [None] * world
+        dist.all_gather_object(gathered, rec)
+        out.append(gathered)
+        del p, x, xd, y
+        if dev_type == "cuda":
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def moe_ep_mesh(torch, cfg, tokens, seed: int, dev_type: str = "cuda",
+                runs=None) -> None:
+    """Phase 21a: ``moe_ep`` at ``cfg``'s MoE widths over 4 ranks sharing
+    the card (gloo), as EP 4 x TP 1 and EP 2 x TP 2.  A capacity factor of
+    EP size drops nothing: the output is held against ``moe_dense`` on the
+    same weights, run here after the ranks exit in float32 and in float64.
+    The elements outside rtol 1e-4 / atol 1e-5 of the float32 run are
+    counted; the check is that ``moe_ep`` lies within twice float32's own
+    rounding (``moe_dense`` float32 against float64) of both runs.  A
+    factor of 1.0 drops pairs: the pairs the experts received are held
+    against the routing's prediction, computed once here."""
+    from repro_torch.launch import spmd
+    from repro_torch.models import moe as M
+
+    runs = runs or (((4, 1), 4.0), ((4, 1), 1.0), ((2, 2), 2.0),
+                    ((2, 2), 1.0))
+    dev = torch.device(dev_type, 0) if dev_type == "cuda" else \
+        torch.device("cpu")
+    b, s = tokens
+    d, k = cfg.d_model, cfg.moe.top_k
+    t0 = time.perf_counter()
+    results = spmd.spawn_ranks(moe_rank, 4, args=(cfg, runs, tokens, seed,
+                                                  dev_type))
+    t_ranks = time.perf_counter() - t0
+    x = moe_tensor(torch, seed, 2, (b, s, d), 1, dev)
+    wr = moe_tensor(torch, seed, 1, (d, cfg.moe.n_experts), d, dev)
+    dense = None
+    for ((ed, tp), cf), recs in zip(runs, results):
+        c = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cf))
+        t_loc = (b // ed) * s
+        cap = max(1, int(round(t_loc * k / ed * cf)))
+        e_loc = c.moe.n_slots // ed
+        predicted = 0
+        for xj in x.reshape(ed, t_loc, d):
+            _, ids = M._route(c, wr, xj)
+            keep, _ = M._dispatch(torch.div(ids.reshape(-1), e_loc,
+                                            rounding_mode="floor"), ed, cap)
+            predicted += int((~keep).sum())
+        firsts = sorted((r for r in recs if r["model"] == 0),
+                        key=lambda r: r["data"])
+        dropped = b * s * k - sum(r["received"] for r in firsts)
+        rows = ed * cap
+        ex = {"dispatch": rows * d * 4 + rows * 4, "return": rows * d * 4}
+        if tp > 1:
+            ex["tp all_reduce"] = rows * d * 4
+        line = (f"[mesh moe] {c.name} widths (d {d}, d_expert "
+                f"{c.moe.d_expert}, {c.moe.n_experts} experts in "
+                f"{c.moe.n_slots} slots, top-{k}), {b * s} tokens float32, "
+                f"EP {ed} x TP {tp} over 4 gloo ranks, capacity factor {cf} "
+                f"(cap {cap}): {max(r['call_s'] for r in recs):.3f} s a call "
+                f"(slowest rank, median of 3), bytes a rank sends per "
+                f"exchange {ex}; pairs dropped {dropped} (the routing "
+                f"predicts {predicted})")
+        if dropped != predicted:
+            raise AssertionError(line + ": the drops differ from the "
+                                 "routing's")
+        if cf >= ed:
+            if predicted:
+                raise AssertionError(line + ": a factor of EP size dropped")
+            if dense is None:
+                dense = moe_dense_pair(torch, cfg, seed, wr, x, dev)
+            y = torch.cat([r["y"] for r in firsts]).to(dev)
+            d32, d64 = dense
+            err = float((y - d32).abs().max())
+            err64 = float((y.double() - d64).abs().max())
+            floor = float((d32.double() - d64).abs().max())
+            close = torch.isclose(y, d32, rtol=1e-4, atol=1e-5)
+            line += (f"; against moe_dense on the same weights: max |diff| "
+                     f"{err:.3e} ({int((~close).sum())} of {y.numel()} "
+                     f"elements outside rtol 1e-4 / atol 1e-5); against "
+                     f"moe_dense in float64 {err64:.3e}, where moe_dense in "
+                     f"float32 is {floor:.3e} from it")
+            # both are float32 computations of one function: each sits
+            # within float32's own rounding of the float64 value
+            if err64 > 2 * floor or err > 2 * floor:
+                raise AssertionError(line + ": moe_ep is further from "
+                                     "moe_dense than float32's rounding")
+        elif not predicted:
+            raise AssertionError(line + ": a factor of 1.0 dropped nothing")
+        log(line)
+    log(f"[mesh moe] the ranks ran {t_ranks:.1f} s (spawn and weights "
+        f"included)")
+    del x, wr, dense
+    if dev_type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def mesh_step_proc(rank, arch, cfg, tokens, seed: int, init: str,
+                   out_path: str, dev_type: str):
+    """Phase 21b in a process of its own: one remat train step of ``cfg``
+    unmeshed and on a 1 x 1 mesh (NCCL on the card, gloo on the host) with
+    ``ctx.ax`` from ``shardings.make_rules``; both from the same seeded
+    weights.  Writes the comparison, the seconds of each step (the second,
+    warm) and the meshed step's per-rank counts to ``out_path``."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.data import synth
+    from repro_torch.launch import dryrun, hlo_stats
+    from repro_torch.launch import shardings as sh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import InputShape
+    from repro_torch.models.layers import placements
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import train_loop as TL
+
+    dev = torch.device(dev_type, 0) if dev_type == "cuda" else \
+        torch.device("cpu")
+    dist.init_process_group("nccl" if dev_type == "cuda" else "gloo",
+                            init_method=init, rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh(dev_type, (1, 1),
+                                mesh_dim_names=("data", "model"))
+        b, s = tokens
+        shape = InputShape("phase-20", s, b, "train")
+        tcfg = TL.TrainConfig(batch=b, seq_len=s)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in next(
+            synth.token_batches(cfg.vocab_size, b, s, 1, seed=seed)).items()}
+
+        def sync():
+            if dev_type == "cuda":
+                torch.cuda.synchronize()
+
+        def two_steps(step, params, state, bt):
+            secs = []
+            for _ in range(2):
+                sync()
+                t0 = time.perf_counter()
+                params, state, m = step(params, state, bt)
+                sync()
+                secs.append(time.perf_counter() - t0)
+                if not secs[1:]:
+                    first = ({n: w.detach().cpu() if not hasattr(
+                        w, "full_tensor") else w.full_tensor().cpu()
+                        for n, w in params.named_parameters()},
+                        float(m["loss"]), float(m["grad_norm"]))
+            return params, state, first, secs
+
+        params = T.init_params(cfg, seed=seed, device=dev)
+        state = O.init(tcfg.opt, params)
+        step = TL.make_train_step(cfg, tcfg, T.RunCtx(remat=True))
+        params, state, want, plain_s = two_steps(step, params, state, batch)
+        del params, state
+        if dev_type == "cuda":
+            torch.cuda.empty_cache()
+
+        cell = sh.make_cell_sharding(cfg, shape, mesh, False)
+        _, bspecs = sh.input_specs(cfg, shape, mesh, False)
+        params = T.init_params(cfg, seed=seed, device=dev)
+        st = O.init(tcfg.opt, params)
+        specs = cell.param_specs
+        params = sh.place_params(params, mesh, specs).requires_grad_(True)
+        state = O.OptState(
+            step=0, m=sh.place_params(st.m, mesh, specs).requires_grad_(False),
+            v=sh.place_params(st.v, mesh, specs).requires_grad_(False))
+        del st
+        bt = {k: distribute_tensor(v, mesh, placements(mesh, bspecs[k]))
+              for k, v in batch.items()}
+        ctx = T.RunCtx(ax=cell.rules, mesh=mesh, batch_axes=cell.batch_axes,
+                       remat=True)
+        step = TL.make_train_step(cfg, tcfg, ctx)
+        counter = dryrun.LocalCounter()
+        tally = hlo_stats.CollectiveTally()
+        with T.mesh_scope(ctx):
+            params, state, got, mesh_s = two_steps(step, params, state, bt)
+            with dryrun.outside_propagation(counter), tally, counter:
+                step(params, state, bt)
+        differ = [n for n in want[0] if not torch.equal(got[0][n],
+                                                        want[0][n])]
+        sync()
+        arg = sum(w.to_local().numel() * w.element_size() for w in
+                  list(params.parameters()) + list(state.m.parameters())
+                  + list(state.v.parameters()) + list(bt.values()))
+        rec = {"arch": arch, "shape": shape.name, "mesh": "1x1",
+               "n_devices": 1, "flops": float(counter.flops),
+               "bytes_accessed": float(counter.bytes),
+               "collectives": hlo_stats.collective_stats(tally.seen),
+               "argument_size_in_bytes": arg,
+               "temp_size_in_bytes": counter.peak,
+               "input_shape": dataclasses.asdict(shape)}
+        with open(out_path, "w") as f:
+            json.dump({"differ": differ, "n_params": len(want[0]),
+                       "loss": [want[1], got[1]],
+                       "grad_norm": [want[2], got[2]],
+                       "plain_s": plain_s, "mesh_s": mesh_s, "rec": rec}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_step(torch, arch: str, cfg, tokens, seed: int, smi: str,
+              dev_type: str = "cuda") -> None:
+    """Phase 21b: the meshed step bitwise against the unmeshed one, its
+    seconds beside ``roofline.analyze``'s terms for the same cell (``cfg``
+    is registry id ``arch``'s config, or its smoke config)."""
+    import tempfile
+
+    from repro_torch.launch import roofline
+
+    with tempfile.TemporaryDirectory(prefix="mesh_step_") as tmp:
+        out = os.path.join(tmp, "step.json")
+        torch.multiprocessing.spawn(
+            mesh_step_proc, nprocs=1, join=True,
+            args=(arch, cfg, tokens, seed,
+                  "file://" + os.path.join(tmp, "pg"), out, dev_type))
+        with open(out) as f:
+            r = json.load(f)
+    rec = r["rec"]
+    # the step computes in float32: the H100's float32 rate bounds it
+    hw = dataclasses.replace(roofline.H100,
+                             peak_flops=roofline.H100.f32_flops)
+    a = roofline.analyze(rec, hw)
+    same = (not r["differ"] and r["loss"][0] == r["loss"][1]
+            and r["grad_norm"][0] == r["grad_norm"][1])
+    log(f"[mesh step] {cfg.name}, batch {tokens[0]} x seq {tokens[1]}, "
+        f"remat: the step on a 1 x 1 DeviceMesh (DTensor params, moments "
+        f"and inputs, ctx.ax from make_rules) against the unmeshed step: "
+        f"loss {r['loss'][1]!r} vs {r['loss'][0]!r}, grad norm "
+        f"{r['grad_norm'][1]!r} vs {r['grad_norm'][0]!r}, "
+        f"{r['n_params'] - len(r['differ'])} of {r['n_params']} params "
+        f"bitwise equal")
+    if not same:
+        raise AssertionError(f"[mesh step] the meshed step differs: "
+                             f"{r['differ'][:5]}")
+    log(f"[mesh step] seconds a step, first and warm: meshed "
+        f"{r['mesh_s'][0]:.3f}, {r['mesh_s'][1]:.3f}; unmeshed "
+        f"{r['plain_s'][0]:.3f}, {r['plain_s'][1]:.3f}; card: {smi}")
+    log(f"[mesh step] roofline.analyze on the meshed step's counts "
+        f"(per-rank FLOPs {rec['flops']:.4e}, unfused bytes "
+        f"{rec['bytes_accessed']:.4e}, argument bytes "
+        f"{rec['argument_size_in_bytes']:,}; modeled, {hw.name} float32 "
+        f"peak {hw.peak_flops / 1e12:.0f} TFLOP/s, HBM "
+        f"{hw.hbm_bw / 1e12:.2f} TB/s): compute {a['t_compute']:.4f} s, "
+        f"memory {a['t_memory']:.4f} s, collective {a['t_collective']:.4f} "
+        f"s, dominant {a['dominant']}; model FLOPs 6NT "
+        f"{a['model_flops']:.4e}; the warm meshed step takes "
+        f"{r['mesh_s'][1] / max(a['t_compute'], a['t_memory'], a['t_collective']):.2f}"
+        f" x its bound")
+
+
+def dry_run_start(cells, out_dir: str):
+    """Phase 21c: start ``python -m repro_torch.launch.dryrun`` for each
+    of ``cells`` (one subprocess each, side by side, the card hidden from
+    them)."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    os.makedirs(out_dir, exist_ok=True)
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--out", out_dir], env=env, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for arch, shape in cells]
+    atexit.register(stop_all, procs)    # a failed phase leaves none behind
+    return procs
+
+
+def stop_all(procs) -> None:
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def dry_run_finish(procs, cells, out_dir: str) -> None:
+    """Wait for the dry-run subprocesses, print their records and the
+    roofline's rows for them (``launch/roofline.py``)."""
+    for (arch, shape), proc in zip(cells, procs):
+        out, _ = proc.communicate(timeout=900)
+        if proc.returncode:
+            raise AssertionError(f"[dry run] {arch} {shape} failed:\n"
+                                 f"{out[-3000:]}")
+    for arch, shape in cells:
+        with open(os.path.join(out_dir, f"{arch}_{shape}_16-16.json")) as f:
+            rec = json.load(f)
+        rec.pop("counted", None)
+        log(f"[dry run] record (modeled, per device): {json.dumps(rec)}")
+    from repro_torch.launch import roofline
+
+    recs = roofline.load(out_dir, "16-16")
+    log(f"[dry run] roofline rows ({roofline.H100.name}; modeled):")
+    for line in roofline.HEADER.splitlines():
+        log(f"[dry run] {line}")
+    for rec in recs:
+        a = roofline.analyze(rec)
+        log(f"[dry run] {roofline.fmt_row(rec, a)}")
+        log(f"[dry run]   move: {roofline.suggest(rec, a)}")
+
+
+def mesh_phase(torch, seed: int, smi: str) -> None:
+    """Phase 21: the model on a device mesh (21a ``moe_ep`` at grok-1's
+    MoE widths, 21b one qwen2-0.5b step on a 1 x 1 mesh, 21c the dry
+    run, started after 21a-b so that no timed phase shares the host with
+    its traces); raises on a failed check."""
+    import shutil
+
+    from repro_torch.configs.registry import get_config
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    out_dir = DRY_RUN_DIR
+    dry_runs = ()
+    try:
+        moe_ep_mesh(torch, get_config("grok-1-314b"), MESH_MOE_TOKENS, seed)
+        mesh_step(torch, "qwen2-0.5b", get_config("qwen2-0.5b"),
+                  MESH_STEP_TOKENS, seed, smi)
+        t0 = time.perf_counter()
+        dry_runs = dry_run_start(DRY_RUN_CELLS, out_dir)
+        dry_run_finish(dry_runs, DRY_RUN_CELLS, out_dir)
+        log(f"[dry run] {len(dry_runs)} cells traced side by side in "
+            f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        stop_all(dry_runs)
+        shutil.rmtree(out_dir, ignore_errors=True)
+    log(f"[mesh] phase 21 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=1_000_000)
@@ -1786,6 +2267,9 @@ def main(argv=None) -> int:
     ap.add_argument("--train-only", action="store_true",
                     help="run phases 1 and 20 only and print no result: "
                          "the training slice alone, a quick check")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="run phases 1 and 21 only and print no result: "
+                         "the mesh slice alone, a quick check")
     args = ap.parse_args(argv)
 
     import torch
@@ -1818,6 +2302,10 @@ def main(argv=None) -> int:
     if args.train_only:
         train_phase(torch, args.seed, smi)
         log("[report] --train-only: ran phases 1 and 20")
+        return 0
+    if args.mesh_only:
+        mesh_phase(torch, args.seed, smi)
+        log("[report] --mesh-only: ran phases 1 and 21")
         return 0
 
     # --- 2. build the kernels ------------------------------------------------
@@ -1980,11 +2468,15 @@ def main(argv=None) -> int:
 
         # --- 9. the executable tier, open loop ---------------------------------
         rate = 0.5 * closed.throughput_qps
-        wl = make_workload(len(batches[1]), rate, 256, "poisson", seed=0)
+        wl = make_workload(len(batches[1]), rate, OPEN_ARRIVALS, "poisson",
+                           seed=0)
         kernels.reset_launch_counts()
         opened = tier.serve(batches[1], wl)
+        n_done = opened.completed
         log(tier_line("tier open", opened, kernels.launch_counts())
-            + f"; offered rate {rate:.1f} QPS")
+            + f"; offered rate {rate:.1f} QPS (over {n_done} answers p95 "
+            f"and p99 are the top {-(-n_done // 20)} and {-(-n_done // 100)}"
+            f" samples, not tails)")
         if opened.offered != opened.completed + opened.rejected:
             raise AssertionError("open loop lost arrivals")
         if not tier_parity(opened, mxu):
@@ -2048,6 +2540,12 @@ def main(argv=None) -> int:
 
     if args.profile:
         profile_batch(torch, eng, batches[1], kernel_sp, args.profile)
+    # --- 21. the model on a device mesh ---------------------------------------
+    # the ranks share the card: free the indexes, engines and answers first
+    del eng, sg, engines, reports, ds, gt, results, plain, kern, mxu
+    del tiled_lut, closed, opened, einsum_res, warm, batches, tier, tier_e
+    gc.collect()
+    mesh_phase(torch, args.seed, smi)
 
     # --- report -----------------------------------------------------------------
     def entry(name, source, replaces, launches_n, row):

@@ -147,3 +147,11 @@ def adc_slots(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     """Slot-batched ADC: luts (S, M, K), codes (S, C, M) -> (S, C); the
     plain version of ``kernels.pq_adc.ops.pq_adc_slots_tiled``."""
     return adc_slots_ref(luts, codes)
+
+
+def reconstruct(cb: PQCodebook, codes: torch.Tensor) -> torch.Tensor:
+    """Decode PQ codes (N, M) back to vectors (N, M * dsub): subspace m of
+    row n is ``centroids[m, codes[n, m]]`` (for diagnostics)."""
+    c = codes.long()
+    m = torch.arange(cb.centroids.shape[0], device=c.device)
+    return cb.centroids[m[None, :], c].reshape(codes.shape[0], -1)

@@ -52,3 +52,45 @@ def recall_at_k(result_ids, gt_ids, k: int) -> float:
     g = np.asarray(gt_ids.cpu() if torch.is_tensor(gt_ids) else gt_ids)[:, :k]
     hits = sum(len(set(a.tolist()) & set(b.tolist())) for a, b in zip(r, g))
     return hits / (r.shape[0] * k)
+
+
+def greedy_beam_search_ref(
+    vectors: np.ndarray,
+    neighbors: np.ndarray,
+    query: np.ndarray,
+    start: int,
+    L: int,
+    k: int,
+) -> tuple[np.ndarray, dict]:
+    """Reference Algorithm 1 (full-precision, W=1) in plain Python: the
+    oracle for the fixed-shape implementation.
+
+    Returns (top-k ids, stats) where stats counts hops and distance comps.
+    """
+    def dist(i):
+        d = vectors[i] - query
+        return float(np.dot(d, d))
+
+    pool = {start: dist(start)}  # id -> dist
+    explored: set[int] = set()
+    hops = 0
+    dcs = 1
+    while True:
+        frontier = [i for i in sorted(pool, key=pool.get)[:L]
+                    if i not in explored]
+        if not frontier:
+            break
+        u = min(frontier, key=lambda i: pool[i])
+        explored.add(u)
+        hops += 1
+        for v in neighbors[u]:
+            v = int(v)
+            if v < 0 or v in pool:
+                continue
+            pool[v] = dist(v)
+            dcs += 1
+        # truncate pool to best L
+        keep = sorted(pool, key=pool.get)[:L]
+        pool = {i: pool[i] for i in set(keep) | explored}
+    best = sorted(explored, key=pool.get)[:k]
+    return np.array(best, dtype=np.int32), {"hops": hops, "dist_comps": dcs}

@@ -94,6 +94,16 @@ class QueryState(NamedTuple):
     lut_scale: "torch.Tensor | None" = None  # (..., M) i8 wire scales
     trace: "HopTrace | None" = None
 
+    @property
+    def L(self) -> int:
+        """Beam width."""
+        return self.beam_ids.shape[-1]
+
+    @property
+    def P(self) -> int:
+        """Rerank pool length."""
+        return self.pool_ids.shape[-1]
+
 
 def tree_map(fn, tree, *rest):
     """``jax.tree.map`` over the port's named tuples; ``None`` leaves stay."""

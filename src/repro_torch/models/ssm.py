@@ -16,6 +16,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import Leaves, normal, rms_norm, zeros
 
@@ -50,6 +51,20 @@ def init_ssm(cfg: ModelConfig, gen: torch.Generator, dtype) -> SSMParams:
         dt_bias=zeros(gen, (h,), f32),
         norm=zeros(gen, (di,), dtype),
         w_out=normal(gen, (di, d), di, dtype),
+    )
+
+
+def init_state(cfg: ModelConfig, batch: int, dtype, device="cuda"
+               ) -> SSMState:
+    """A zero decode state: conv tail (B, d_conv-1, Di + 2*N) in ``dtype``,
+    SSM state (B, H, P, N) float32."""
+    dev = resolve_device(device)
+    di, n, h = cfg.d_inner_ssm, cfg.ssm.d_state, cfg.n_ssm_heads
+    p = cfg.ssm.headdim
+    return SSMState(
+        conv=torch.zeros((batch, cfg.ssm.d_conv - 1, di + 2 * n),
+                         dtype=dtype, device=dev),
+        ssm=torch.zeros((batch, h, p, n), dtype=torch.float32, device=dev),
     )
 
 

@@ -89,3 +89,14 @@ def test_train_samples_like_reference():
     np.testing.assert_allclose(got.centroids.numpy(),
                                np.asarray(ref.centroids), rtol=1e-4,
                                atol=1e-4)
+
+
+def test_reconstruct_on_conftest_codes(codebook, codes):
+    """Decoded codes equal the reference's ``reconstruct`` bitwise (a
+    gather of centroid rows)."""
+    want = np.asarray(rpq.reconstruct(codebook, jnp.asarray(codes[:200])))
+    got = tpq.reconstruct(
+        tpq.PQCodebook(centroids=torch.tensor(np.asarray(codebook.centroids))),
+        torch.tensor(np.asarray(codes[:200]))).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got, want)

@@ -165,3 +165,15 @@ def test_ssm_forward_carried_tail():
         got, _ = TS.ssm_forward(cfg_t, pt, torch.from_numpy(x[:, 4:]), gst)
     want, _ = RS.ssm_forward(cfg_r, pr, jnp.asarray(x[:, 4:]), wst)
     close(got, want)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "hymba-1.5b"])
+def test_init_state(arch):
+    """Zero decode states of the reference's shapes and dtypes."""
+    cfg_r, cfg_t = rreg.get_smoke_config(arch), treg.get_smoke_config(arch)
+    want = RS.init_state(cfg_r, 3, jnp.bfloat16)
+    got = TS.init_state(cfg_t, 3, torch.bfloat16, device="cpu")
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == w.shape
+        assert str(g.dtype).split(".")[-1] == str(w.dtype)
+        assert not g.any()

@@ -75,3 +75,11 @@ def test_row_helpers():
     assert rows.qid.tolist() == [2, 0]
     flat = ts.flat_rows(ts.empty_state(4, 3, 2, shape=(2, 3)))
     assert tuple(flat.beam_ids.shape) == (6, 3)
+
+
+@pytest.mark.parametrize("L,P", [(32, 128), (64, 256)])
+def test_query_state_L_and_P(L, P):
+    """The beam width and pool length properties, on batched states."""
+    want = rs.empty_state(16, L, P)
+    got = ts.empty_state(16, L, P, shape=(2, 3))
+    assert (got.L, got.P) == (want.L, want.P) == (L, P)
