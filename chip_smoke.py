@@ -6,8 +6,8 @@
     python3 chip_smoke.py --profile build/profile   # + a profiled batch
     python3 chip_smoke.py --engine-only   # phases 1-6 only, no result line
     python3 chip_smoke.py --seed 1   # phases 19-20's weights, tokens, requests
-    python3 chip_smoke.py --train-only   # phases 1 and 20 only, no result line
-    python3 chip_smoke.py --mesh-only    # phases 1 and 21 only, no result line
+    python3 chip_smoke.py --phases 20 22   # phase 1, then only these of
+                                           # 3, 20, 21, 22; no result line
 
 Phases (any failure exits non-zero; nothing is swallowed):
 
@@ -24,11 +24,15 @@ Phases (any failure exits non-zero; nothing is swallowed):
    line says so): the slot
    ADC at the engine's (S, C) = (256, 256), the scatter-gather search's
    (8192, 256) (P * B = 8 * 1024 branches), the tier's (8, 256) and (1,
-   256), the ragged (100, 200) and a LUT past shared memory (M = 256):
-   every tile and route of ``adc_slots_plan``, printed; the bitonic top-k
-   (the beam and pool merges at the engine's 256 rows and the
-   scatter-gather search's 8192, rows that pad to 32, 64, 1024 and 4096:
-   every route and register count of ``topk_plan``, printed), the dense
+   256), the ragged (100, 200), a LUT past shared memory (M = 256) and
+   phase 22's examples' (S, C, M, K): the quickstart's (128, 192, 24,
+   256), the distributed demo's (192, 160, 24, 128) and the RAG demo's
+   (64, 64, 16, 64): every tile and route of ``adc_slots_plan``, printed;
+   the bitonic top-k (the beam and pool merges at the engine's 256 rows
+   and the scatter-gather search's 8192, the beam merges of the
+   quickstart (L 48 + 192), the distributed demo (L 40 + 160) and the RAG
+   demo (L 32 + 64), rows that pad to 32, 64, 1024 and 4096: every route
+   and register count of ``topk_plan``, printed), the dense
    ADC at the engine's (B, Q, N) = (8, 32, 8192), the tier's (1, g, 256 g)
    for g = 8, 4, 2, 1, a ragged shape and (1, 16, 8192), (1, 32, 8192)
    (every row tile of ``adc_plan``, printed), and the LUT build at Q =
@@ -57,9 +61,9 @@ Phases (any failure exits non-zero; nothing is swallowed):
    threads serve ~7 QPS under the GIL, so the whole batch took ~150 s);
    requires every query completed and answers bitwise equal to phase 7;
    prints throughput, latency percentiles, hand-offs, wire bytes per hand-off against ``envelope_bytes``, host
-   syncs and kernel launches; then its first 256 queries with the einsum
-   LUT against phase 5, whose parity is printed (a finding, not a
-   requirement);
+   syncs and kernel launches; then its first ``EINSUM_QUERIES`` = 256
+   queries with the einsum LUT against phase 5, whose parity is printed
+   (a finding, not a requirement);
 9. the executable tier, open loop: ``OPEN_ARRIVALS`` = 64 Poisson
    arrivals at half the closed-loop throughput; requires ``offered == completed + rejected`` and
    parity on the completed ones; prints the same fields (its p95 and p99
@@ -138,7 +142,8 @@ Phases (any failure exits non-zero; nothing is swallowed):
     closes); prints start-up seconds, throughput, latency percentiles,
     per-worker host syncs and the card's busy share (``nvidia-smi``
     utilization, sampled every 100 ms) beside phase 8's thread-mode
-    numbers; then the einsum slot-ADC route over the first 256 queries
+    numbers; then the einsum slot-ADC route over the first
+    ``EINSUM_QUERIES`` queries
     against phase 5 (a finding, beside phase 8's ``[tier einsum]`` line),
     where ``pq_adc_slots`` must launch in the children;
 18. SPMD: phase 4's index saved with ``Deployment.save``, then
@@ -211,6 +216,32 @@ Phases (any failure exits non-zero; nothing is swallowed):
     bytes; (c) ``python -m repro_torch.launch.dryrun`` for qwen2-0.5b
     train_4k and grok-1-314b decode_32k at 16 x 16 (on the host, side by
     side, after 21a-b), their records and roofline rows printed.
+22. the repository's examples on the port and the quickstart's path at
+    scale: (a) each ``examples/torch_*.py``'s ``main`` on the card at its
+    default size: the quickstart (``batann-quickstart``, n = 4000, a
+    global Vamana graph, the kernel route; recall@10 >= 0.95), the
+    distributed demo (P = 8: its SPMD ids over 8 gloo ranks sharing the
+    card bitwise equal to the single-process run, every query delivered
+    before and after the 8 -> 6 failover), the RAG demo (2000 docs, 8
+    requests; its retrieval's ids and counters bitwise equal to
+    ``Deployment.search`` on the same queries) and the training demo (40
+    steps, a kill, a resume to 60: losses and params bitwise equal to an
+    uninterrupted 60-step run; checkpoints under ``build/``, removed
+    after); the quickstart's, the distributed demo's (before and after
+    the failover) and the RAG retrieval's queries again on the card on
+    the plain route (``gather``/``lexsort``), which launches no kernel:
+    ids, dists and five counters bitwise equal to the kernel route's;
+    (b) ``VAMANA_N`` = 200,000 DEEP-like points at ``batann-serve``'s
+    widths (d 96, R 32, l_build 64, alpha 1.2, P 8, PQ 24 x 256, head
+    0.01), built once with ``graph_mode="vamana"`` (the graph by
+    ``vamana.build``, its host syncs counted in torch's sync debug mode,
+    then ``BatonEngine.build(graph=)``) and once with ``"knn"``, each
+    searched with the same 1024 queries (L 64, W 8, pool 256, slots 32 on
+    the kernel route) after a 128-query warm-up: one ``[vamana]`` line a
+    graph with the build stages' seconds, the Vamana build's host syncs,
+    degree stats, peak device memory, recall@10 against the card's
+    brute-force ground truth, mean hops, inter_hops, reads and dist
+    comps, the batch's wall time and QPS, and the card.
 
 Kernel launch counts are set to 0 just before each path runs and read just
 after: the slot ADC and the top-k on phase 5, the dense ADC and the LUT
@@ -221,7 +252,10 @@ ADC, the LUT kernel and the top-k in the worker processes of phase 17 and
 the slot ADC in those of its einsum run (counted in the children, sent
 back at close); the slot ADC, the top-k and the LUT kernel in every rank
 of phase 18 (counted in each rank after its warm-up); the slot ADC, the
-top-k and the LUT kernel on phase 19's retrieval.  The line before the last is the kernels' JSON record; the last line is
+top-k and the LUT kernel on phase 19's retrieval; the slot ADC and the
+top-k on each of phase 22's paths (the quickstart, the distributed demo's
+single-process runs and each of its ranks, the RAG retrieval, each 200k
+index's search).  The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result, when
 no CUDA device is visible or the ``repro_torch`` package is not beside it.
 """
@@ -238,6 +272,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -251,14 +286,17 @@ STAT_KEYS = ("hops", "inter_hops", "dist_comps", "reads", "lut_builds")
 # vocabulary of the qwen2 smoke config that the reference's copy test
 # (tests/test_training.py) trains on
 COPY_VOCAB = 256
-# depth cuts that keep the script inside half its time limit: the thread
-# tier's closed loop serves the first TIER_QUERIES queries of batch 1 and
-# its open loop offers OPEN_ARRIVALS arrivals, live
+# depth cuts of the earlier phases (with them the whole script took 787 s
+# of its 1200-s limit on an NVIDIA H100 80GB HBM3 at 700 W, phase 22 128 s
+# of it): the thread tier's closed loop serves the first TIER_QUERIES
+# queries of batch 1 and its open loop offers OPEN_ARRIVALS arrivals, live
 # mutation runs over the first MUTATE_ROWS rows of phase 4's dataset, the
 # simulator's latency sweep offers SIM_SWEEP_ARRIVALS arrivals a rate and
-# its scenario runs search the first SCENARIO_QUERIES queries
+# its scenario runs search the first SCENARIO_QUERIES queries; the einsum
+# runs of the thread and the process tier serve the first EINSUM_QUERIES
 TIER_QUERIES = 128
 OPEN_ARRIVALS = 64
+EINSUM_QUERIES = 256
 MUTATE_ROWS = 100_000
 SIM_SWEEP_ARRIVALS = 1500
 SCENARIO_QUERIES = 256
@@ -269,6 +307,12 @@ MESH_MOE_TOKENS = (8, 256)
 MESH_STEP_TOKENS = (8, 128)
 DRY_RUN_CELLS = (("qwen2-0.5b", "train_4k"), ("grok-1-314b", "decode_32k"))
 DRY_RUN_DIR = os.path.join(ROOT, "build", "dryrun_smoke")
+# phase 22b: the quickstart's path (a global Vamana graph) at card scale, at
+# batann-serve's widths; VAMANA_N is halved until the Vamana graph builds in
+# 90 s on the card (55-75 s at 200,000 points on an NVIDIA H100 80GB HBM3
+# at a 700 W limit)
+VAMANA_N = 200_000
+VAMANA_QUERIES = 1024
 # Earlier times of the kernels, quoted from PERF.md's kernel table (NVIDIA
 # H100 80GB HBM3, 700 W, CUDA events, median of 25 calls, inputs in L2), by
 # (kernel, phase-3 shape): (ms, the commit whose kernels were measured) --
@@ -296,6 +340,19 @@ PORT_KERNELS = ("adc_dense_kernel", "adc_slots_staged", "adc_slots_direct",
 
 def log(*a):
     print(*a, flush=True)
+
+
+def syncs_of(torch, fn):
+    """``fn()`` and the synchronizing CUDA calls it made (torch's sync debug
+    mode warns on each)."""
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in seen)
 
 
 def nvidia_smi_line() -> str:
@@ -411,7 +468,11 @@ def check_adc(torch, gen, dev) -> dict:
                               ("tier", (8, 256, 24, 256)),
                               ("tier S=1", (1, 256, 24, 256)),
                               ("ragged", (100, 200, 24, 256)),
-                              ("LUT past smem", (4, 256, 256, 256))):
+                              ("LUT past smem", (4, 256, 256, 256)),
+                              # phase 22's examples: P * slots rows of W * R
+                              ("quickstart", (128, 192, 24, 256)),
+                              ("demo K=128", (192, 160, 24, 128)),
+                              ("RAG", (64, 64, 16, 64))):
         luts = torch.rand((s, m, k), generator=gen, device=dev) * 4.0
         codes = torch.randint(0, k, (s, c, m), generator=gen, device=dev,
                               dtype=torch.uint8)
@@ -459,7 +520,12 @@ def check_topk(torch, gen, dev) -> dict:
              ("short", 256, 20, 12, 10, False),          # pads to 32
              ("short 64", 256, 40, 24, 16, False),       # pads to 64
              ("dups", 64, 600, 400, 100, True),          # pads to 1024
-             ("dups 4096", 4, 2000, 1000, 64, True))
+             ("dups 4096", 4, 2000, 1000, 64, True),
+             # phase 22's examples: beam L + W * R, pool + W
+             ("quickstart beam", 128, 48, 192, 48, False),  # pads to 256
+             ("demo beam", 192, 40, 160, 40, False),        # pads to 256
+             ("RAG beam", 64, 32, 64, 32, False),           # pads to 128
+             ("RAG pool", 64, 128, 4, 128, False))          # pads to 256
     for tag, b, ca, cb, k, dups in cases:
         if dups:
             da = torch.randint(0, 4, (b, ca), generator=gen, device=dev).float()
@@ -1249,19 +1315,21 @@ def process_phase(eng, queries, mxu, mxu_sp, kernel_sp, kern, thread,
     tier_e = AsyncServingTier(eng.index, eng.baton_params(kernel_sp),
                               n_workers=4, batch=8, mode="process")
     try:
-        einsum_res = tier_e.search(queries[:256])
+        einsum_res = tier_e.search(queries[:EINSUM_QUERIES])
     finally:
         tier_e.close()
     child = tier_e.child_launch_counts()
     if child["pq_adc_slots"] == 0:
         raise AssertionError("the slot-ADC route never launched "
                              "pq_adc_slots in the worker processes")
-    log(f"[proc einsum] the einsum LUT (mxu_tiled/bitonic), first 256 "
-        f"queries, against phase 5: parity {tier_parity(einsum_res, kern)}, "
-        f"{int((einsum_res.ids != kern.ids[:256]).sum())} ids and "
-        f"{int((einsum_res.dists != kern.dists[:256]).sum())} dists differ "
+    head = slice(0, EINSUM_QUERIES)
+    log(f"[proc einsum] the einsum LUT (mxu_tiled/bitonic), first "
+        f"{EINSUM_QUERIES} queries, against phase 5: parity "
+        f"{tier_parity(einsum_res, kern)}, "
+        f"{int((einsum_res.ids != kern.ids[head]).sum())} ids and "
+        f"{int((einsum_res.dists != kern.dists[head]).sum())} dists differ "
         f"(thread mode, phase 8: "
-        f"{int((einsum_thread.ids != kern.ids[:256]).sum())} ids); "
+        f"{int((einsum_thread.ids != kern.ids[head]).sum())} ids); "
         f"throughput {einsum_res.throughput_qps:.1f} QPS against "
         f"{einsum_thread.throughput_qps:.1f}; launches in the children "
         f"{child}")
@@ -1547,7 +1615,6 @@ def train_phase(torch, seed: int, smi: str) -> None:
     seven checks raise on failure."""
     import copy
     import shutil
-    import warnings
 
     from repro_torch import kernels
     from repro_torch.configs.registry import get_config
@@ -1567,18 +1634,6 @@ def train_phase(torch, seed: int, smi: str) -> None:
 
     def named(params):
         return {k: w.detach() for k, w in params.named_parameters()}
-
-    def syncs_of(fn):
-        """``fn()`` and the synchronizing CUDA calls it made (torch's sync
-        debug mode warns on each)."""
-        with warnings.catch_warnings(record=True) as seen:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                out = fn()
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        return out, sum("synchroniz" in str(w.message) for w in seen)
 
     def report(tag, step_s, n_el, moment_bytes, syncs, n_steps):
         warm = statistics.median(step_s[2:])
@@ -1602,7 +1657,7 @@ def train_phase(torch, seed: int, smi: str) -> None:
                           opt=O.AdamWConfig(total_steps=steps))
     torch.cuda.reset_peak_memory_stats()
     timings: dict = {}
-    (params, st, losses), syncs = syncs_of(lambda: TL.train(
+    (params, st, losses), syncs = syncs_of(torch, lambda: TL.train(
         cfg, tcfg, ctx, device="cuda", timings=timings))
     nm = named(params)
     n_el = sum(w.numel() for w in nm.values())
@@ -1649,7 +1704,7 @@ def train_phase(torch, seed: int, smi: str) -> None:
             t0 = t
         return p, out, times
 
-    (params, c_losses, c_times), syncs = syncs_of(copy_task)
+    (params, c_losses, c_times), syncs = syncs_of(torch, copy_task)
     if not (np.isfinite(c_losses).all() and c_losses[-1] < c_losses[0]):
         raise AssertionError(f"[train] copy task: losses {c_losses}")
     log(f"[train] copy task (labels = tokens drawn from {COPY_VOCAB} ids; "
@@ -2249,6 +2304,308 @@ def mesh_phase(torch, seed: int, smi: str) -> None:
     log(f"[mesh] phase 21 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# --- phase 22: the examples, and the quickstart's Vamana build at scale -----
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module (the folder is not a package)."""
+    import importlib
+
+    sys.path.insert(0, os.path.join(ROOT, "examples"))
+    try:
+        return importlib.import_module(name)
+    finally:
+        sys.path.pop(0)
+
+
+def need_launches(launches: dict, names, where: str) -> None:
+    for name in names:
+        if launches[name] == 0:
+            raise AssertionError(f"kernel {name} was never launched on "
+                                 f"{where}")
+
+
+def plain_parity(dep, queries, kern, where: str) -> float:
+    """``queries`` through ``dep``'s engine again on the plain route
+    (``gather``/``lexsort``), which must launch no kernel; raises unless
+    ids, dists and five counters are bitwise equal to ``kern`` (the kernel
+    route's answers).  Returns the plain run's wall seconds."""
+    from repro_torch import kernels
+
+    before = kernels.launch_counts()
+    plain = dep.engine.search(queries, dataclasses.replace(
+        dep.config.search, adc_impl="gather", merge_impl="lexsort"))
+    if kernels.launch_counts() != before:
+        raise AssertionError(f"{where}: the plain route launched a kernel")
+    if not same_answers(plain, kern):
+        raise AssertionError(f"{where}: the kernel route's answers differ "
+                             f"from the plain route's")
+    return plain.wall_s
+
+
+def examples_run(torch) -> dict:
+    """Phase 22a: each example's ``main`` on the card at its default size;
+    returns the slot-ADC and top-k launches of the paths it drove."""
+    import shutil
+    import tempfile
+
+    from repro_torch import kernels
+
+    search_kernels = ("pq_adc_slots", "bitonic_topk")
+    total = {k: 0 for k in kernels.launch_counts()}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    qs = load_example("torch_quickstart").main([])
+    launches = kernels.launch_counts()
+    need_launches(launches, search_kernels, "the quickstart's path")
+    add(launches)
+    dep = qs["deployment"]
+    plain_s = plain_parity(dep, dep.dataset.queries, qs["report"],
+                           "the quickstart")
+    c = qs["counters"]
+    log(f"[examples] quickstart: n {qs['n']}, {qs['servers']} servers, "
+        f"recall@10 {qs['recall']:.4f}, hops {c['hops']:.2f}, inter_hops "
+        f"{c['inter_hops']:.2f} ({qs['inter_share']:.4f} of hops), reads "
+        f"{c['reads']:.2f}, dist comps {c['dist_comps']:.1f}, modeled QPS "
+        f"{qs['modeled_qps']:.1f}, modeled latency "
+        f"{qs['modeled_latency_s'] * 1e3:.3f} ms; build {qs['build_s']:.2f} s"
+        f", stages (s) {json.dumps(qs['build_timings'])}; search wall "
+        f"{qs['wall_s']:.3f} s; delivered {qs['delivered']}; launches "
+        f"{launches}; the plain route bitwise equal (ids, dists, counters),"
+        f" wall {plain_s:.3f} s; {time.perf_counter() - t0:.1f} s")
+    if qs["recall"] < 0.95 or qs["delivered"] != 1.0:
+        raise AssertionError(f"quickstart: recall@10 {qs['recall']} < 0.95 "
+                             f"or delivered {qs['delivered']}")
+    del qs, dep
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    dsr = load_example("torch_distributed_search").main([])
+    launches = kernels.launch_counts()
+    need_launches(launches, search_kernels, "the distributed demo's "
+                  "single-process and failover runs")
+    add(launches)
+    for r in dsr["ranks"]:
+        need_launches(r["launches"], search_kernels,
+                      f"the distributed demo's rank {r['rank']}")
+        add(r["launches"])
+    if not (dsr["bitwise"] and dsr["spmd_delivered"] == 1.0
+            and dsr["delivered"] == 1.0):
+        raise AssertionError("distributed demo: SPMD not bitwise equal or "
+                             "a query not delivered")
+    queries = dsr["deployment"].dataset.queries
+    plain_s = plain_parity(dsr["deployment"], queries, dsr["report"],
+                           "the distributed demo")
+    plain6_s = plain_parity(dsr["failover_deployment"], queries,
+                            dsr["failover_report"],
+                            "the distributed demo's failover")
+    log(f"[examples] distributed_search: {len(dsr['ranks'])} ranks on "
+        f"{dsr['ranks'][0]['device']} over gloo, ids bitwise equal to the "
+        f"single-process run ({dsr['ids'].shape[0]} queries); recall@10 "
+        f"{dsr['recall']:.4f}, SPMD {dsr['spmd_recall']:.4f}, delivered "
+        f"{dsr['spmd_delivered']}; single-process wall {dsr['wall_s']:.3f} s,"
+        f" SPMD wall {dsr['spmd_wall_s']:.2f} s with the spawn (slowest "
+        f"rank's run {dsr['spmd_run_s']:.3f} s); failover 8 -> 6 recall@10 "
+        f"{dsr['failover_recall']:.4f}, delivered {dsr['delivered']}, wall "
+        f"{dsr['failover_wall_s']:.3f} s; launches here {launches}, rank 0 "
+        f"{dsr['ranks'][0]['launches']}; the plain route bitwise equal "
+        f"(ids, dists, counters) before and after the failover, wall "
+        f"{plain_s:.3f} and {plain6_s:.3f} s; "
+        f"{time.perf_counter() - t0:.1f} s")
+    del dsr, queries
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    rag = load_example("torch_rag_serve").main([])
+    launches = kernels.launch_counts()
+    need_launches(launches, search_kernels, "the RAG example's retrieval")
+    add(launches)
+    again = rag["system"].deployment.search(rag["queries"])
+    if not (again.ids.tobytes() == rag["ids"].tobytes()
+            and all((again.stats[k] == rag["stats"][k]).all()
+                    for k in STAT_KEYS)):
+        raise AssertionError("rag_serve: retrieval differs from "
+                             "Deployment.search on the same queries")
+    plain_s = plain_parity(rag["system"].deployment, rag["queries"], again,
+                           "the RAG retrieval")
+    tm = rag["timings"]
+    log(f"[examples] rag_serve: {len(rag['queries'])} requests, tokens "
+        f"{tuple(rag['tokens'].shape)}, rank-1 hit rate {rag['hit_rate']:.4f}"
+        f", retrieval ids and counters bitwise equal to Deployment.search, "
+        f"whose ids, dists and counters equal the plain route's (wall "
+        f"{plain_s:.3f} s); "
+        f"build {rag['build_s']:.2f} s; retrieve {tm['retrieve']:.3f} s, "
+        f"prefill {tm['prefill']:.3f} s, decode {tm['decode']:.3f} s; "
+        f"launches {launches}; {time.perf_counter() - t0:.1f} s")
+    del rag, again
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ex = load_example("torch_train_lm")
+    build_dir = os.path.join(ROOT, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    root = tempfile.mkdtemp(dir=build_dir, prefix="train_lm_smoke_")
+    try:
+        killed, whole = (os.path.join(root, d) for d in ("killed", "whole"))
+        first = ex.main(["60", "--ckpt-dir", killed, "--stop-after", "40"])
+        resumed = ex.main(["60", "--ckpt-dir", killed])
+        full = ex.main(["60", "--ckpt-dir", whole])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    same_p = all(torch.equal(a, b) for a, b in zip(
+        resumed["params"].parameters(), full["params"].parameters(),
+        strict=True))
+    same_l = first["losses"] + resumed["losses"] == full["losses"]
+    log(f"[examples] train_lm: 40 steps, a kill, a resume to 60: losses "
+        f"{'bitwise equal' if same_l else 'DIFFER'} to the uninterrupted "
+        f"run's ({full['losses'][0]:.4f} -> {full['losses'][-1]:.4f}), "
+        f"params {'bitwise equal' if same_p else 'DIFFER'}; wall "
+        f"{first['wall_s']:.2f} + {resumed['wall_s']:.2f} s against "
+        f"{full['wall_s']:.2f} s ({len(full['losses'])} steps, "
+        f"{full['wall_s'] / len(full['losses']) * 1e3:.1f} ms a step); "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not (same_l and same_p and resumed["step"] == 60):
+        raise AssertionError("train_lm: the resumed run differs from the "
+                             "uninterrupted one")
+    return total
+
+
+def vamana_run(torch, n: int, smi: str) -> dict:
+    """Phase 22b: the quickstart's path at card scale, ``n`` DEEP-like
+    points at ``batann-serve``'s widths, built once with each graph mode
+    over the same data and searched with the same queries; returns the
+    searches' launches."""
+    from repro_torch import kernels
+    from repro_torch.api.engine import BatonEngine
+    from repro_torch.configs.batann_serve import IndexSpec, SearchParams
+    from repro_torch.core import ref, vamana
+    from repro_torch.data import synth
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    ds = synth.make_dataset("deep", n=n, n_queries=VAMANA_QUERIES, seed=0,
+                            compute_gt_k=0)
+    gt = ref.brute_force_knn(ds.vectors, ds.queries, 10, device=dev).cpu()
+    log(f"[vamana] n={n} d=96, {VAMANA_QUERIES} queries: data and ground "
+        f"truth {time.perf_counter() - t0:.1f} s")
+    sp = SearchParams(L=64, W=8, pool=256, slots=32, adc_impl="mxu_tiled",
+                      merge_impl="bitonic")
+    total = {k: 0 for k in kernels.launch_counts()}
+    for mode in ("vamana", "knn"):
+        spec = IndexSpec(p=8, graph_mode=mode, r=32, l_build=64, alpha=1.2,
+                         pq_m=24, pq_k=256, head_fraction=0.01)
+        eng = BatonEngine(device="cuda")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        stages, syncs = {}, ""
+        if mode == "vamana":
+            graph, n_syncs = syncs_of(torch, lambda: vamana.build(
+                ds.vectors, r=spec.r, l_build=spec.l_build, alpha=spec.alpha,
+                seed=spec.seed, device=dev))
+            torch.cuda.synchronize()
+            stages["graph"] = time.perf_counter() - t0
+            syncs = (f"; the graph's build synchronized {n_syncs} times "
+                     f"(torch's sync debug mode, on while it ran)")
+            eng.build(ds, spec, graph=graph)
+            stages.update((k, v) for k, v in eng.build_timings.items()
+                          if k != "graph")
+            del graph
+        else:
+            eng.build(ds, spec)
+            stages.update(eng.build_timings)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        warm = eng.search(ds.queries[:128], sp)
+        kernels.reset_launch_counts()
+        res = eng.search(ds.queries, sp)
+        launches = kernels.launch_counts()
+        need_launches(launches, ("pq_adc_slots", "bitonic_topk"),
+                      f"the {mode} index's search")
+        for k, v in launches.items():
+            total[k] += v
+        rec = ref.recall_at_k(res.ids, gt, 10)
+        c = res.counters()
+        log(f"[vamana] graph_mode={mode}: n {n}, P 8, R 32, l_build 64, "
+            f"alpha 1.2, PQ 24 x 256, head 0.01; build {t_build:.2f} s, "
+            f"stages (s) "
+            f"{json.dumps({k: round(v, 3) for k, v in stages.items()})}"
+            f"{syncs}; degree {eng.index.graph.degree_stats()}; peak device "
+            f"memory {peak:.2f} GiB; L 64, W 8, pool 256, slots 32 on "
+            f"mxu_tiled/bitonic: recall@10 {rec:.4f}, hops {c['hops']:.3f}, "
+            f"inter_hops {c['inter_hops']:.3f}, reads {c['reads']:.3f}, "
+            f"dist comps {c['dist_comps']:.1f}; batch of {len(ds.queries)} "
+            f"wall {res.wall_s:.3f} s, QPS {len(ds.queries) / res.wall_s:.1f}"
+            f" (warm-up of 128 {warm.wall_s:.3f} s); delivered "
+            f"{res.stats['delivered']}; host syncs {res.stats['host_syncs']};"
+            f" launches {launches}; card: {smi}")
+        if res.stats["delivered"] != 1.0 or rec < 0.5:
+            raise AssertionError(f"{mode} index: recall@10 {rec} or "
+                                 f"delivered {res.stats['delivered']}")
+        del eng, res, warm
+    return total
+
+
+def examples_phase(torch, smi: str) -> dict:
+    """Phase 22: 22a the four examples, 22b the 200k-point builds; returns
+    the kernel launches of the paths they drove."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = examples_run(torch)
+    t_a = time.perf_counter() - t_phase
+    for k, v in vamana_run(torch, VAMANA_N, smi).items():
+        total[k] += v
+    log(f"[examples] phase 22 took {time.perf_counter() - t_phase:.1f} s "
+        f"(22a {t_a:.1f} s); launches {total}")
+    return total
+
+
+def build_kernels() -> None:
+    """Phase 2: every kernel from the repository's sources, one ``nvcc``
+    each, started together."""
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    logs = _build.build()
+    for name, text in logs.items():
+        info = [ln.strip() for ln in text.splitlines()
+                if "ptxas info" in ln or "stack frame" in ln]
+        log(f"[build] {name}: " + " | ".join(info[-3:]))
+    log(f"[build] kernels ready in {time.perf_counter() - t0:.1f} s "
+        f"({sorted(logs)} compiled)")
+
+
+def run_phases(torch, args, smi: str) -> int:
+    """``--phases``: the chosen standalone phases in order (phase 2 first
+    where one launches kernels), no result."""
+    if {3, 22} & set(args.phases):
+        build_kernels()
+    for phase in sorted(set(args.phases)):
+        if phase == 3:
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(0)
+            for check in (check_adc, check_topk, check_dense_adc, check_lut):
+                check(torch, gen, torch.device("cuda"))
+        elif phase == 20:
+            train_phase(torch, args.seed, smi)
+        elif phase == 21:
+            mesh_phase(torch, args.seed, smi)
+        else:
+            examples_phase(torch, smi)
+    log(f"[report] --phases: ran phase 1 and {sorted(set(args.phases))}")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=1_000_000)
@@ -2264,12 +2621,12 @@ def main(argv=None) -> int:
                     help="stop after phase 6 and print no result: times the "
                          "engine's path alone, as an older tree's script "
                          "that ends there does (for A/B runs in one call)")
-    ap.add_argument("--train-only", action="store_true",
-                    help="run phases 1 and 20 only and print no result: "
-                         "the training slice alone, a quick check")
-    ap.add_argument("--mesh-only", action="store_true",
-                    help="run phases 1 and 21 only and print no result: "
-                         "the mesh slice alone, a quick check")
+    ap.add_argument("--phases", type=int, nargs="+", choices=(3, 20, 21, 22),
+                    metavar="N",
+                    help="after phase 1, run only these of phases 3, 20, 21 "
+                         "and 22 (phase 2 first where they launch kernels) "
+                         "and print no result: one slice alone, a quick "
+                         "check")
     args = ap.parse_args(argv)
 
     import torch
@@ -2290,7 +2647,6 @@ def main(argv=None) -> int:
     from repro_torch.configs.batann_serve import IndexSpec, SearchParams
     from repro_torch.core import ref
     from repro_torch.data import synth
-    from repro_torch.kernels import _build
     from repro_torch.serve_async import AsyncServingTier
 
     t_start = time.perf_counter()
@@ -2299,24 +2655,11 @@ def main(argv=None) -> int:
     log("[env]", json.dumps(repro_torch.env_record()))
     smi = nvidia_smi_line()
     log(f"[env] nvidia-smi: {smi}")
-    if args.train_only:
-        train_phase(torch, args.seed, smi)
-        log("[report] --train-only: ran phases 1 and 20")
-        return 0
-    if args.mesh_only:
-        mesh_phase(torch, args.seed, smi)
-        log("[report] --mesh-only: ran phases 1 and 21")
-        return 0
+    if args.phases:
+        return run_phases(torch, args, smi)
 
     # --- 2. build the kernels ------------------------------------------------
-    t0 = time.perf_counter()
-    logs = _build.build()
-    for name, text in logs.items():
-        info = [ln.strip() for ln in text.splitlines()
-                if "ptxas info" in ln or "stack frame" in ln]
-        log(f"[build] {name}: " + " | ".join(info[-3:]))
-    log(f"[build] kernels ready in {time.perf_counter() - t0:.1f} s "
-        f"({sorted(logs)} compiled)")
+    build_kernels()
 
     # --- 3. kernels against their plain versions ------------------------------
     gen = torch.Generator(device=dev)
@@ -2492,16 +2835,18 @@ def main(argv=None) -> int:
     with AsyncServingTier(eng.index, eng.baton_params(kernel_sp), n_workers=4,
                           batch=8) as tier_e:
         kernels.reset_launch_counts()
-        einsum_res = tier_e.search(batches[1][:256])
+        einsum_res = tier_e.search(batches[1][:EINSUM_QUERIES])
         einsum_launches = kernels.launch_counts()
     if einsum_launches["pq_adc_slots"] == 0:
         raise AssertionError("the tier's slot-ADC route (micro-batches of "
                              "S <= 8) never launched pq_adc_slots")
-    log(f"[tier einsum] the einsum LUT (mxu_tiled/bitonic), first 256 "
-        f"queries, against phase 5: "
+    log(f"[tier einsum] the einsum LUT (mxu_tiled/bitonic), first "
+        f"{EINSUM_QUERIES} queries, against phase 5: "
         f"parity {tier_parity(einsum_res, kern)}, "
-        f"{int((einsum_res.ids != kern.ids[:256]).sum())} ids and "
-        f"{int((einsum_res.dists != kern.dists[:256]).sum())} dists differ; "
+        f"{int((einsum_res.ids != kern.ids[:EINSUM_QUERIES]).sum())} ids "
+        f"and "
+        f"{int((einsum_res.dists != kern.dists[:EINSUM_QUERIES]).sum())} "
+        f"dists differ; "
         f"throughput {einsum_res.throughput_qps:.1f} QPS; launches "
         f"{einsum_launches} (pq_adc_slots: the tier's micro-batches, S <= 8)")
 
@@ -2546,6 +2891,8 @@ def main(argv=None) -> int:
     del tiled_lut, closed, opened, einsum_res, warm, batches, tier, tier_e
     gc.collect()
     mesh_phase(torch, args.seed, smi)
+    # --- 22. the examples; the quickstart's Vamana build at 200k points -------
+    ex_launches = examples_phase(torch, smi)
 
     # --- report -----------------------------------------------------------------
     def entry(name, source, replaces, launches_n, row):
@@ -2559,12 +2906,12 @@ def main(argv=None) -> int:
     record = {"kernels": [
         entry("pq_adc_slots", "src/repro_torch/kernels/pq_adc/adc_slots.cu",
               "src/repro/kernels/pq_adc/kernel.py:100",
-              launches["pq_adc_slots"] + lm_launches["pq_adc_slots"],
-              adc["slice"]),
+              launches["pq_adc_slots"] + lm_launches["pq_adc_slots"]
+              + ex_launches["pq_adc_slots"], adc["slice"]),
         entry("bitonic_topk", "src/repro_torch/kernels/topk/topk.cu",
               "src/repro/kernels/topk/kernel.py:62",
-              launches["bitonic_topk"] + lm_launches["bitonic_topk"],
-              topk["beam"]),
+              launches["bitonic_topk"] + lm_launches["bitonic_topk"]
+              + ex_launches["bitonic_topk"], topk["beam"]),
         entry("pq_adc", "src/repro_torch/kernels/pq_adc/adc.cu",
               "src/repro/kernels/pq_adc/kernel.py:63",
               tier_launches["pq_adc"], dense["tier"]),
@@ -2588,7 +2935,9 @@ def main(argv=None) -> int:
         f"({lm_launches['pq_lut']}); pq_adc_slots and bitonic_topk with "
         f"theirs on phase 5 ({launches['pq_adc_slots']}, "
         f"{launches['bitonic_topk']}) plus phase 19's "
-        f"({lm_launches['pq_adc_slots']}, {lm_launches['bitonic_topk']})")
+        f"({lm_launches['pq_adc_slots']}, {lm_launches['bitonic_topk']}) "
+        f"plus phase 22's ({ex_launches['pq_adc_slots']}, "
+        f"{ex_launches['bitonic_topk']})")
     log(f"[report] total {time.perf_counter() - t_start:.1f} s; card: {smi}")
     log(smi)
     print(json.dumps(record), flush=True)

@@ -1,7 +1,8 @@
 """Import discipline and no-fallback rules of the port.
 
-* ``src/repro_torch`` and ``chip_smoke.py`` import neither JAX nor the
-  reference package (AST scan);
+* ``src/repro_torch``, ``chip_smoke.py`` and the port's examples
+  (``examples/torch_*.py``) import neither JAX nor the reference package
+  (AST scan);
 * asking for CUDA without a card raises — nothing falls back to the CPU;
 * the modes carried since slice 1 (the lazy queue LUT, the sector layout)
   refuse only what the reference refuses (a lazy refill without the
@@ -27,7 +28,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 def _port_files():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return (files + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "examples").glob("torch_*.py")))
 
 
 def _imported_modules(path):
@@ -48,6 +50,8 @@ def test_port_imports_neither_jax_nor_reference():
                 "training/optimizer.py", "training/train_loop.py",
                 "launch/train.py"):
         assert ROOT / "src" / "repro_torch" / mod in files, mod
+    for name in ("quickstart", "distributed_search", "rag_serve", "train_lm"):
+        assert ROOT / "examples" / f"torch_{name}.py" in files, name
     bad = [f"{p.relative_to(ROOT)}:{line}: {mod}"
            for p in files for line, mod in _imported_modules(p)
            if mod.split(".")[0] in FORBIDDEN]

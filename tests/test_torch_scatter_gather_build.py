@@ -5,6 +5,7 @@ compiles once per partition size).  Small inputs: the first 400 conftest
 points over P = 2."""
 
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -12,7 +13,7 @@ import pytest
 from repro.core import partition as rpart, scatter_gather as rsg
 from repro_torch.api.engine import ScatterGatherEngine
 from repro_torch.configs.batann_serve import SERVE_CONFIGS
-from repro_torch.core import scatter_gather as tsg
+from repro_torch.core import scatter_gather as tsg, vamana as tv
 
 KW = dict(p=2, r=20, l_build=40, pq_m=16, pq_k=128, seed=0)
 
@@ -22,12 +23,20 @@ def vectors(dataset):
     return dataset.vectors[:400]
 
 
-def test_vamana_build_matches_reference(vectors):
+@pytest.mark.parametrize("partitioner", ["random", "kmeans", "ldg"])
+def test_vamana_build_matches_reference(vectors, partitioner):
     """Partition graphs (the insertion build, one per partition), medoids,
-    codes and the random assignment equal the reference's."""
-    want = rsg.build_index(vectors, partitioner="random", **KW)
-    got = tsg.build_index(vectors, partitioner="random", device="cpu",
-                          timings=(tm := {}), **KW)
+    codes and the assignment equal the reference's, for each split.  LDG
+    splits one global graph, here the port's insertion build handed to
+    both (``global_graph``; that build is held against the reference's in
+    ``test_torch_build.py``), which spares the reference's own ~12 s."""
+    g = (tv.build(vectors, r=KW["r"], l_build=KW["l_build"], seed=0,
+                  device="cpu") if partitioner == "ldg" else None)
+    want = rsg.build_index(
+        vectors, partitioner=partitioner, **KW,
+        global_graph=g and types.SimpleNamespace(neighbors=g.neighbors.numpy()))
+    got = tsg.build_index(vectors, partitioner=partitioner, device="cpu",
+                          timings=(tm := {}), global_graph=g, **KW)
     np.testing.assert_array_equal(got.assign, want.assign)
     np.testing.assert_array_equal(got.part_neighbors.numpy(),
                                   want.part_neighbors)
