@@ -246,9 +246,12 @@ class Deployment:
     def dim(self) -> int:
         return self.engine.index.dim
 
-    def search(self, queries) -> SearchResult:
-        """Raw engine search under the config's search params."""
-        return self.engine.search(queries, self.config.search)
+    def search(self, queries, meter=None) -> SearchResult:
+        """Raw engine search under the config's search params; ``meter``
+        (a ``SyncMeter``) receives the engine's syncs, records and spans."""
+        if meter is None:
+            return self.engine.search(queries, self.config.search)
+        return self.engine.search(queries, self.config.search, meter=meter)
 
     def cluster_traces(self, stats: dict) -> list:
         """Replayable per-query traces (``cluster.trace``)."""

@@ -32,6 +32,9 @@ Every loop condition and every scatter that the reference writes with
 ``mode="drop"`` costs one device->host sync here (a loop flag, or the
 ``nonzero`` of an explicit in-range filter before ``index_put``); a
 ``SyncMeter`` counts them and the time the host spends blocked in them.
+The same meter receives one record a super-step of ``run_simulated`` (the
+queries delivered, the inner steps, the occupied slots a partition, all
+host values already) and, when asked, a span for each phase.
 
 The sector layout (``build_index(codes_mode="sector")``) stores each
 node's neighbours' PQ codes in its sector (``part_nbr_codes``) and drops
@@ -42,7 +45,6 @@ by the head index, so nothing on this path gathers from the placeholder.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import NamedTuple
 
 import numpy as np
@@ -418,7 +420,8 @@ def local_advance(dev: DeviceState, shard: Shard, cfg: BatonParams,
     ``step_disk(fused=False)``): the same one step over all P·S slots, with
     the two-pass merges and the gather ADC.  ``shard_rows`` (P,) is the
     shard row that holds each partition's sectors (default ``my_part``; an
-    SPMD rank's shard holds its own partition only, as row 0).
+    SPMD rank's shard holds its own partition only, as row 0).  Returns the
+    new state and the loop's iterations (a host count).
     """
     P, S = dev.states.active.shape
     st = flat_rows(dev.states)
@@ -426,10 +429,12 @@ def local_advance(dev: DeviceState, shard: Shard, cfg: BatonParams,
     rows = parts if shard_rows is None else shard_rows.repeat_interleave(S)
     progressed = torch.ones(P, dtype=torch.bool, device=parts.device)
     it = torch.zeros(P, dtype=I32, device=parts.device)
+    n_steps = 0
     while True:
         running = progressed & (it < cfg.max_local_steps)
         if not meter.flag(running.any()):
             break
+        n_steps += 1
         fposs, local, any_local, any_frontier, _ = _frontier_ownership(
             st, shard, cfg, parts)
         runnable = (st.active & ~st.done & any_frontier & any_local
@@ -449,12 +454,13 @@ def local_advance(dev: DeviceState, shard: Shard, cfg: BatonParams,
     _, _, v = select_frontier(st.beam_ids, st.beam_expl, 1)
     st = st._replace(done=st.done | (st.active & ~v.any(1)))
     return dev._replace(states=tree_map(
-        lambda x: x.reshape((P, S) + tuple(x.shape[1:])), st))
+        lambda x: x.reshape((P, S) + tuple(x.shape[1:])), st)), n_steps
 
 
 def deliver_local(dev: DeviceState, cfg: BatonParams, my_part, n_parts: int,
                   meter: SyncMeter):
-    """Write out results of done states homed here; free their slots."""
+    """Write out results of done states homed here; free their slots.
+    Returns the new state and the number delivered (a host count)."""
     st = dev.states
     ready = st.active & st.done & (st.home == my_part[:, None])
     p_i, s_i = meter.nonzero(ready)
@@ -470,7 +476,7 @@ def deliver_local(dev: DeviceState, cfg: BatonParams, my_part, n_parts: int,
         out_trace=dev.out_trace.index_put(idx, st.trace.stacked()[p_i, s_i]),
         delivered=dev.delivered.index_put(
             idx, torch.ones_like(row, dtype=torch.bool)),
-    )
+    ), len(p_i)
 
 
 def _dest_rank(d_idx: torch.Tensor, n_parts: int) -> torch.Tensor:
@@ -505,7 +511,8 @@ def pack_results(dev: DeviceState, cfg: BatonParams, my_part, n_parts: int,
 
 def merge_results(dev: DeviceState, inc: ResultMsg, cfg: BatonParams,
                   n_parts: int, meter: SyncMeter):
-    """Write received result messages (P, P·Cr) into the output arrays."""
+    """Write received result messages (P, P·Cr) into the output arrays.
+    Returns the new state and the number delivered (a host count)."""
     p_i, j_i = meter.nonzero(inc.qid >= 0)
     idx = (p_i, (inc.qid[p_i, j_i] // n_parts).long())
     return dev._replace(
@@ -515,7 +522,7 @@ def merge_results(dev: DeviceState, inc: ResultMsg, cfg: BatonParams,
         out_trace=dev.out_trace.index_put(idx, inc.trace[p_i, j_i]),
         delivered=dev.delivered.index_put(
             idx, torch.ones_like(p_i, dtype=torch.bool)),
-    )
+    ), len(p_i)
 
 
 def plan_routes(dev: DeviceState, shard: Shard, cfg: BatonParams, my_part):
@@ -651,22 +658,32 @@ def _trace_accumulate(dev: DeviceState, pre: Counters) -> DeviceState:
 
 def _superstep_local(dev, shard, cfg, my_part, n_parts, meter,
                      codebook=None, shard_rows=None):
-    """Phases 1-2 + route planning (everything before communication)."""
-    dev = refill(dev, cfg, my_part, codebook=codebook)
+    """Phases 1-2 + route planning (everything before communication), each
+    under its span of ``meter``.  The last two of what it returns are host
+    counts: ``local_advance``'s iterations and the queries delivered here."""
+    with meter.span("refill"):
+        dev = refill(dev, cfg, my_part, codebook=codebook)
     pre = dev.states.counters
-    dev = local_advance(dev, shard, cfg, my_part, meter, shard_rows)
-    dev = _trace_accumulate(dev, pre)
-    dev = deliver_local(dev, cfg, my_part, n_parts, meter)
-    res_buf, dev = pack_results(dev, cfg, my_part, n_parts, meter)
-    dest = plan_routes(dev, shard, cfg, my_part)                  # (P, S)
-    P = dest.shape[0]
-    want = torch.zeros((P, n_parts), dtype=I32, device=dest.device)
-    want = want.scatter_add(1, dest.clamp_min(0).long(), (dest >= 0).to(I32))
-    # conservative: a state occupies its slot until actually sent
-    n_active = dev.states.active.sum(1, dtype=I32)
-    free = cfg.slots - n_active
-    n_queue = (dev.queue_qid.shape[1] - dev.queue_head).clamp_min(0)
-    return dev, res_buf, dest, want, free, n_active + n_queue
+    with meter.span("local_advance"):
+        dev, local_steps = local_advance(dev, shard, cfg, my_part, meter,
+                                         shard_rows)
+    with meter.span("hop_trace"):
+        dev = _trace_accumulate(dev, pre)
+    with meter.span("deliver"):
+        dev, delivered = deliver_local(dev, cfg, my_part, n_parts, meter)
+        res_buf, dev = pack_results(dev, cfg, my_part, n_parts, meter)
+    with meter.span("route"):
+        dest = plan_routes(dev, shard, cfg, my_part)              # (P, S)
+        P = dest.shape[0]
+        want = torch.zeros((P, n_parts), dtype=I32, device=dest.device)
+        want = want.scatter_add(1, dest.clamp_min(0).long(),
+                                (dest >= 0).to(I32))
+        # conservative: a state occupies its slot until actually sent
+        n_active = dev.states.active.sum(1, dtype=I32)
+        free = cfg.slots - n_active
+        n_queue = (dev.queue_qid.shape[1] - dev.queue_head).clamp_min(0)
+    return (dev, res_buf, dest, want, free, n_active + n_queue, local_steps,
+            delivered)
 
 
 # ---------------------------------------------------------------------------
@@ -729,52 +746,59 @@ def run_simulated(index: BatonIndex, queries, cfg: BatonParams,
     numpy ``(ids (B, k), dists (B, k), stats)``; ``stats`` holds the
     per-query counters, the traces, ``n_supersteps``, ``delivered``, and
     the host syncs of the run with the seconds the host spent blocked in
-    them."""
+    them.  ``meter`` also receives the loop's ``Step`` records, and its
+    spans when it has them on."""
     meter = meter or SyncMeter()
     count0, sec0 = meter.count, meter.seconds
     device = index.device
     P = index.p
-    q = torch.as_tensor(np.asarray(queries, np.float32), device=device)
-    q_dev, qid_dev, st_dev, sd_dev, B, Bp, per = _split_round_robin(
-        index, q, cfg, meter)
-    shard = index.stacked_shards(sector_codes=sector_codes)
-    codebook = index.codebook
-    devs = init_device_state(q_dev, qid_dev, st_dev, sd_dev, cfg, codebook)
-    my_parts = torch.arange(P, dtype=I32, device=device)
+    with meter.call():
+        q = torch.as_tensor(np.asarray(queries, np.float32), device=device)
+        with meter.span("head_starts"):
+            q_dev, qid_dev, st_dev, sd_dev, B, Bp, per = _split_round_robin(
+                index, q, cfg, meter)
+        shard = index.stacked_shards(sector_codes=sector_codes)
+        codebook = index.codebook
+        with meter.span("lut"):
+            devs = init_device_state(q_dev, qid_dev, st_dev, sd_dev, cfg,
+                                     codebook)
+        my_parts = torch.arange(P, dtype=I32, device=device)
 
-    def transpose(x, cap):
-        return x.transpose(0, 1).reshape((P, P * cap) + tuple(x.shape[3:]))
+        def transpose(x, cap):
+            return x.transpose(0, 1).reshape((P, P * cap)
+                                             + tuple(x.shape[3:]))
 
-    n_supersteps, remaining = 0, 1
-    while remaining > 0 and n_supersteps < cfg.max_supersteps:
-        devs, res_buf, dest, want, free, rem = _superstep_local(
-            devs, shard, cfg, my_parts, P, meter, codebook=codebook)
-        grant = grant_matrix(want, free, cfg.pair_cap)
-        bufs, devs = pack_sends(devs, dest, grant, cfg, P, meter)
-        # all_to_all == transpose of the (src, dst) axes in simulation
-        inc_states = tree_map(lambda x: transpose(x, cfg.pair_cap), bufs)
-        inc_res = tree_map(lambda x: transpose(x, cfg.result_cap), res_buf)
-        devs = merge_recv(devs, inc_states, cfg, codebook, meter)
-        devs = merge_results(devs, inc_res, cfg, P, meter)
-        t0 = time.perf_counter()
-        remaining = int(rem.sum())
-        meter.seconds += time.perf_counter() - t0
-        meter.count += 1
-        n_supersteps += 1
-    ids, dists, out = _collect(devs, qid_dev, cfg, B, Bp, P, per,
-                               n_supersteps)
+        meter.loop(Bp)
+        n_supersteps, remaining = 0, 1
+        while remaining > 0 and n_supersteps < cfg.max_supersteps:
+            with meter.span("superstep"):
+                (devs, res_buf, dest, want, free, rem, local_steps,
+                 delivered) = _superstep_local(devs, shard, cfg, my_parts,
+                                               P, meter, codebook=codebook)
+                with meter.span("route"):
+                    grant = grant_matrix(want, free, cfg.pair_cap)
+                    bufs, devs = pack_sends(devs, dest, grant, cfg, P, meter)
+                    # all_to_all == transpose of the (src, dst) axes here
+                    inc_states = tree_map(
+                        lambda x: transpose(x, cfg.pair_cap), bufs)
+                    inc_res = tree_map(
+                        lambda x: transpose(x, cfg.result_cap), res_buf)
+                with meter.span("merge"):
+                    devs = merge_recv(devs, inc_states, cfg, codebook, meter)
+                    devs, got = merge_results(devs, inc_res, cfg, P, meter)
+                with meter.span("count"):
+                    # the closing sync: (remaining, occupied slots) a part
+                    closing = meter.host(torch.stack(
+                        [rem, devs.states.active.sum(1, dtype=I32)])).numpy()
+                remaining = int(closing[0].sum())
+                meter.step(delivered + got, local_steps, closing[1])
+            n_supersteps += 1
+        with meter.span("collect"):
+            ids, dists, out = _collect(devs, qid_dev, cfg, B, Bp, P, per,
+                                       n_supersteps)
     out["host_syncs"] = meter.count - count0
     out["host_sync_s"] = meter.seconds - sec0
     return ids, dists, out
-
-
-def _staged(x: torch.Tensor, meter: SyncMeter) -> torch.Tensor:
-    """``x`` on the host for a gloo collective: one counted sync."""
-    t0 = time.perf_counter()
-    out = x.cpu()
-    meter.seconds += time.perf_counter() - t0
-    meter.count += 1
-    return out
 
 
 def _all_to_all(tree, meter: SyncMeter, group=None):
@@ -789,7 +813,7 @@ def _all_to_all(tree, meter: SyncMeter, group=None):
     P = leaves[0].shape[1]
     flat = [x[0].reshape(P, -1).contiguous().view(torch.uint8)
             for x in leaves]
-    send = _staged(torch.cat(flat, 1), meter)
+    send = meter.host(torch.cat(flat, 1))
     recv = torch.empty_like(send)
     dist.all_to_all_single(recv, send, group=group)
     recv = recv.to(device)
@@ -829,10 +853,10 @@ def make_spmd_fn(cfg: BatonParams, n_parts: int, group=None):
         row0 = torch.zeros(1, dtype=I32, device=device)
         n_supersteps, remaining = 0, 1
         while remaining > 0 and n_supersteps < cfg.max_supersteps:
-            dev, res_buf, dest, want, free, rem = _superstep_local(
+            dev, res_buf, dest, want, free, rem, _, _ = _superstep_local(
                 dev, shard, cfg, my_part, n_parts, meter, codebook=codebook,
                 shard_rows=row0)
-            mine = _staged(torch.cat([want[0], free]), meter)    # (P + 1,)
+            mine = meter.host(torch.cat([want[0], free]))        # (P + 1,)
             got = [torch.empty_like(mine) for _ in range(n_parts)]
             dist.all_gather(got, mine, group=group)
             both = torch.stack(got).to(device)                  # (P, P + 1)
@@ -843,8 +867,8 @@ def make_spmd_fn(cfg: BatonParams, n_parts: int, group=None):
             inc_states = _all_to_all(bufs, meter, group)
             inc_res = _all_to_all(res_buf, meter, group)
             dev = merge_recv(dev, inc_states, cfg, codebook, meter)
-            dev = merge_results(dev, inc_res, cfg, n_parts, meter)
-            total = _staged(rem.sum(dtype=torch.int64)[None], meter)
+            dev, _ = merge_results(dev, inc_res, cfg, n_parts, meter)
+            total = meter.host(rem.sum(dtype=torch.int64)[None])
             dist.all_reduce(total, group=group)
             remaining = int(total)
             n_supersteps += 1
@@ -895,7 +919,7 @@ def run_spmd(index: BatonIndex, queries, cfg: BatonParams, rank: int,
             dev.delivered)
     gathered = []
     for x in outs:
-        x = _staged(x, meter)
+        x = meter.host(x)
         got = [torch.empty_like(x) for _ in range(P)] if rank == 0 else None
         dist.gather(x, got, dst=dist.get_global_rank(group, 0)
                     if group is not None else 0, group=group)

@@ -9,10 +9,13 @@ tests do), and then every kernel wrapper takes its plain PyTorch version.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
 import shutil
 import time
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 DEFAULT_DEVICE = "cuda"
@@ -56,13 +59,115 @@ def timed(timings: "dict | None", name: str, device: torch.device):
     timings[name] = timings.get(name, 0.0) + time.perf_counter() - t0
 
 
+def clock_ns() -> int:
+    """The clock of spans and super-step records: Unix-epoch nanoseconds,
+    the clock ``torch.profiler`` (Kineto) stamps its events with, so a span
+    can be laid over a device trace of the same process."""
+    return time.time_ns()
+
+
+@dataclasses.dataclass
+class Span:
+    """One timed phase of a call: ``parent`` is the index of the enclosing
+    span in ``SyncMeter.spans`` (-1 for a call's root), ``call`` the id the
+    call's spans share; ``t1_ns`` is -1 while the span is open."""
+
+    name: str
+    t0_ns: int
+    t1_ns: int
+    parent: int
+    call: int
+
+
+class Step(NamedTuple):
+    """One super-step of the baton engine's loop, recorded after its
+    closing count reached the host: the stamp, the queries delivered in it,
+    the iterations of its ``local_advance`` loop, and the occupied slots of
+    each partition after ``merge_recv`` (a (P,) array)."""
+
+    t_ns: int
+    delivered: int
+    local_steps: int
+    active: np.ndarray
+
+
+@dataclasses.dataclass
+class Loop:
+    """The super-step loop of one call: its start stamp, the padded batch
+    it serves and its ``Step`` records."""
+
+    call: int
+    t0_ns: int
+    batch: int
+    steps: list
+
+
+class _SpanScope:
+    def __init__(self, meter: "SyncMeter", name: str):
+        self.meter, self.name = meter, name
+
+    def __enter__(self):
+        m = self.meter
+        m.spans.append(Span(self.name, clock_ns(), -1,
+                            m._open[-1] if m._open else -1, m.call_id))
+        m._open.append(len(m.spans) - 1)
+        return self
+
+    def __exit__(self, *exc):
+        m = self.meter
+        m.spans[m._open.pop()].t1_ns = clock_ns()
+        return False
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
 class SyncMeter:
     """Counts the device->host syncs a host loop makes and the wall time
-    the host spends blocked in them (waiting for queued device work)."""
+    the host spends blocked in them (waiting for queued device work).
 
-    def __init__(self):
+    It is also the engines' one in-program recorder: the baton engine's
+    loop appends a ``Loop`` of per-super-step ``Step`` records to ``loops``
+    (always; they cost no sync), and with ``spans=True`` every phase it
+    enters appends a ``Span`` to ``spans``.  With spans off, ``span()``
+    returns a shared no-op context.  Everything stays in memory."""
+
+    def __init__(self, spans: bool = False):
         self.count = 0
         self.seconds = 0.0
+        self.spans_on = spans
+        self.spans: list = []
+        self.loops: list = []
+        self.call_id = 0
+        self._open: list = []
+
+    def span(self, name: str):
+        """A context that records the block as the span ``name`` (a child
+        of the innermost open span), or does nothing with spans off."""
+        return _SpanScope(self, name) if self.spans_on else _NO_SPAN
+
+    def call(self):
+        """Start a new call: its id tags the spans and the loop that
+        follow; returns the call's root span ``call``."""
+        self.call_id += 1
+        return self.span("call")
+
+    def loop(self, batch: int) -> None:
+        """Stamp the start of the current call's super-step loop."""
+        self.loops.append(Loop(self.call_id, clock_ns(), batch, []))
+
+    def step(self, delivered: int, local_steps: int, active) -> None:
+        """Record a super-step of the current loop (stamped now)."""
+        self.loops[-1].steps.append(
+            Step(clock_ns(), delivered, local_steps, active))
+
+    def host(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` copied to the host: one sync."""
+        t0 = time.perf_counter()
+        out = t.cpu()
+        self.seconds += time.perf_counter() - t0
+        self.count += 1
+        return out
 
     def flag(self, t: torch.Tensor) -> bool:
         """``bool(t)`` for a one-element tensor."""
