@@ -12,7 +12,7 @@
 Phases (any failure exits non-zero; nothing is swallowed):
 
 1. print the environment record and the card's name and power limit;
-2. build the four CUDA kernels from the repository's sources (one ``nvcc``
+2. build the five CUDA kernels from the repository's sources (one ``nvcc``
    each, started together);
 3. hold each kernel bitwise against its plain PyTorch version on the card
    at the main paths' shapes (plus ragged and duplicate-heavy cases) and
@@ -40,6 +40,11 @@ Phases (any failure exits non-zero; nothing is swallowed):
    super-step at P * slots = 8 * 32), 32, 3, 1 (the tier's rebuild), a
    ragged Q = 100 and dsub = 8 (every centroid tile and route of
    ``lut_plan``, printed), each LUT also checked independent of its batch;
+   and the candidate filter at the engine's step (B; C | Ha + Hb) =
+   (10,240; 256 | 64 + 256), with half its rows holding no live candidate,
+   the head search's hop (8192; 32 | 16 + 64), the tier's one state and a
+   Vamana build's hop (1024; 32 | 64 + 128), its library yardstick the
+   broadcast ``==`` and ``any`` over both haystacks at once;
 4. build the ``batann-serve`` index on the card: DEEP-like synthetic data,
    d = 96, n = 1,000,000, P = 8, R = 32, kNN k = 17, PQ M = 24, K = 256,
    head fraction 0.01 (each build stage timed);
@@ -49,7 +54,9 @@ Phases (any failure exits non-zero; nothing is swallowed):
    batch, with the kernels' launch counts reset just before and read just
    after; recall@10 against the card's brute-force ground truth;
 6. re-run the first batch on the plain route (``gather``/``lexsort``) and
-   require ids, distances and all five counters bitwise equal;
+   require ids, distances and all five counters bitwise equal (the plain
+   route launches no kernel but the candidate filter, whose route follows
+   the device on every path);
 7. the dense route: the first batch through ``BatonEngine.search`` with
    ``adc_impl="mxu"``, ``merge_impl="bitonic"``, ``lut_impl="kernel"``,
    bitwise equal (ids, dists, five counters) to the same batch on
@@ -197,7 +204,7 @@ Phases (any failure exits non-zero; nothing is swallowed):
     at batch 2 x seq 64 on the card against the host: loss, grad norm and
     params within rtol 1e-4 / atol 1e-6; (7) bfloat16 moments: m and v
     bfloat16, the loss finite.  The training path launches none of the
-    four kernels (counted and printed).
+    five kernels (counted and printed).
 21. the model on a device mesh, in subprocesses: (a) ``moe_ep`` at
     grok-1's MoE widths (d 6144, d_expert 32,768, 8 experts in 16 slots,
     top-2), float32, 2048 tokens (8 x 256), over 4 ranks sharing the card
@@ -229,7 +236,8 @@ Phases (any failure exits non-zero; nothing is swallowed):
     uninterrupted 60-step run; checkpoints under ``build/``, removed
     after); the quickstart's, the distributed demo's (before and after
     the failover) and the RAG retrieval's queries again on the card on
-    the plain route (``gather``/``lexsort``), which launches no kernel:
+    the plain route (``gather``/``lexsort``), which launches no kernel but
+    the candidate filter:
     ids, dists and five counters bitwise equal to the kernel route's;
     (b) ``VAMANA_N`` = 200,000 DEEP-like points at ``batann-serve``'s
     widths (d 96, R 32, l_build 64, alpha 1.2, P 8, PQ 24 x 256, head
@@ -335,7 +343,7 @@ EARLIER_MS = {
 
 # the kernels' names as the profiler lists them (inside each key)
 PORT_KERNELS = ("adc_dense_kernel", "adc_slots_staged", "adc_slots_direct",
-                "topk_kernel", "pq_lut_kernel")
+                "topk_kernel", "pq_lut_kernel", "cand_filter_kernel")
 
 
 def log(*a):
@@ -674,6 +682,72 @@ def check_lut(torch, gen, dev) -> dict:
     return rows
 
 
+def check_filter(torch, gen, dev) -> dict:
+    from repro_torch.kernels.cand_filter.ops import (
+        filter_known, filter_known_ref, filter_plan)
+
+    rows = {}
+    for tag, (b, c, ha, hb, dead) in (
+            ("engine", (10240, 256, 64, 256, 0)),
+            ("engine half idle", (10240, 256, 64, 256, 5120)),
+            ("head search", (8192, 32, 16, 64, 0)),
+            ("tier", (1, 256, 64, 256, 0)),
+            ("Vamana build", (1024, 32, 64, 128, 0))):
+        def ids(w, dead_rows=0):
+            x = torch.randint(0, ha + hb + 1, (b, w), generator=gen,
+                              device=dev, dtype=torch.int32)
+            x[torch.rand((b, w), generator=gen, device=dev) < 0.2] = -1
+            x[:dead_rows] = -1
+            return x
+
+        cand, a, h = ids(c, dead), ids(ha), ids(hb)
+        got = filter_known(cand, a, h)
+        want = filter_known_ref(cand, a, h)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"filter kernel != plain at {tag}")
+        cat = torch.cat([a, h], 1)
+
+        def library():
+            eq = (cat[:, None, :] == cand[:, :, None]).any(-1)
+            return torch.where(eq & (cand != -1), -1, cand)
+
+        plan = filter_plan(b, c, ha, hb)
+        rows[tag] = dict(
+            plan=f"{plan.rows} rows a CTA of {plan.threads} threads, "
+                 f"grid={plan.grid} smem={plan.smem}",
+            earlier_ms=None, shape=(b, c, ha, hb, dead), max_abs_err=0.0,
+            found=float((want != cand).float().mean()),
+            ms=time_ms(lambda: filter_known(cand, a, h), torch),
+            **kernel_us(lambda: filter_known(cand, a, h),
+                        "cand_filter_kernel", torch),
+            plain_ms=time_ms(lambda: filter_known_ref(cand, a, h), torch),
+            library_ms=time_ms(library, torch),
+            # ids read once, filtered ids written once (rows that hold no
+            # live candidate need no haystack)
+            bytes=b * c * 8 + (b - dead) * (ha + hb) * 4,
+            ops=0,
+        )
+        log(f"[kernels] cand_filter {tag} B,C,Ha,Hb,idle rows="
+            f"{rows[tag]['shape']} ({rows[tag]['plan']}): bitwise equal, "
+            f"{rows[tag]['found']:.3f} of the candidates dropped; kernel "
+            f"{rows[tag]['ms']:.4f} ms ({alone(rows[tag])}), plain "
+            f"{rows[tag]['plain_ms']:.4f} ms, == and any "
+            f"{rows[tag]['library_ms']:.4f} ms")
+    return rows
+
+
+def plain_route_launches(counts: dict, where: str) -> None:
+    """Raise unless the plain route (``gather``/``lexsort``) launched no
+    kernel but the candidate filter, whose route follows the device on
+    every path, and that one did run."""
+    other = {k: v for k, v in counts.items() if v and k != "cand_filter"}
+    if other:
+        raise AssertionError(f"{where} launched {other}")
+    if counts["cand_filter"] == 0:
+        raise AssertionError(f"{where} did not launch the candidate filter")
+
+
 def same_answers(a, b) -> bool:
     """Bitwise equal ids, dists and five counters of two engine results."""
     return (a.ids.tobytes() == b.ids.tobytes()
@@ -776,7 +850,7 @@ def profile_tier(torch, tier, queries, out_dir: str) -> None:
     log_port_kernels("tier", ka)
 
 
-def per_slot_phase(eng, queries, plain, launches) -> None:
+def per_slot_phase(eng, queries, plain) -> None:
     """Phase 10: ``queries`` with ``fused=False`` (two-pass merges, gather
     ADC), bitwise equal to ``plain`` (the fused plain route)."""
     from repro_torch import kernels
@@ -785,8 +859,7 @@ def per_slot_phase(eng, queries, plain, launches) -> None:
     seed_sp = SearchParams(L=64, W=8, pool=256, slots=32, fused=False)
     kernels.reset_launch_counts()
     seed = eng.search(queries, seed_sp)
-    if kernels.launch_counts() != {k: 0 for k in launches}:
-        raise AssertionError("the per-slot path launched a kernel")
+    plain_route_launches(kernels.launch_counts(), "the per-slot path")
     if not (same_answers(seed, plain)
             and np.array_equal(seed.stats["trace"], plain.stats["trace"])
             and seed.stats["n_supersteps"] == plain.stats["n_supersteps"]):
@@ -1857,7 +1930,7 @@ def train_phase(torch, seed: int, smi: str) -> None:
     torch.cuda.empty_cache()
     launched = kernels.launch_counts()
     log(f"[train] kernel launches in phase 20: {launched} (the training "
-        f"path runs none of the four)")
+        f"path runs none of the five)")
     log(f"[train] phase 20 took {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -2327,7 +2400,8 @@ def need_launches(launches: dict, names, where: str) -> None:
 
 def plain_parity(dep, queries, kern, where: str) -> float:
     """``queries`` through ``dep``'s engine again on the plain route
-    (``gather``/``lexsort``), which must launch no kernel; raises unless
+    (``gather``/``lexsort``), which must launch no kernel but the
+    candidate filter; raises unless
     ids, dists and five counters are bitwise equal to ``kern`` (the kernel
     route's answers).  Returns the plain run's wall seconds."""
     from repro_torch import kernels
@@ -2335,8 +2409,9 @@ def plain_parity(dep, queries, kern, where: str) -> float:
     before = kernels.launch_counts()
     plain = dep.engine.search(queries, dataclasses.replace(
         dep.config.search, adc_impl="gather", merge_impl="lexsort"))
-    if kernels.launch_counts() != before:
-        raise AssertionError(f"{where}: the plain route launched a kernel")
+    after = kernels.launch_counts()
+    plain_route_launches({k: after[k] - before[k] for k in after},
+                         f"{where}: the plain route")
     if not same_answers(plain, kern):
         raise AssertionError(f"{where}: the kernel route's answers differ "
                              f"from the plain route's")
@@ -2594,7 +2669,8 @@ def run_phases(torch, args, smi: str) -> int:
         if phase == 3:
             gen = torch.Generator(device="cuda")
             gen.manual_seed(0)
-            for check in (check_adc, check_topk, check_dense_adc, check_lut):
+            for check in (check_adc, check_topk, check_dense_adc, check_lut,
+                          check_filter):
                 check(torch, gen, torch.device("cuda"))
         elif phase == 20:
             train_phase(torch, args.seed, smi)
@@ -2668,6 +2744,7 @@ def main(argv=None) -> int:
     topk = check_topk(torch, gen, dev)
     dense = check_dense_adc(torch, gen, dev)
     lut = check_lut(torch, gen, dev)
+    cand_filter = check_filter(torch, gen, dev)
 
     # --- 4. build the index ----------------------------------------------------
     spec = IndexSpec(p=8, r=32, knn_k=17, pq_m=24, pq_k=256,
@@ -2740,8 +2817,7 @@ def main(argv=None) -> int:
     kernels.reset_launch_counts()
     plain = eng.search(batches[1], plain_sp)
     kern = results[0]
-    if kernels.launch_counts() != {k: 0 for k in launches}:
-        raise AssertionError("the plain route launched a kernel")
+    plain_route_launches(kernels.launch_counts(), "the plain route")
     if not (plain.ids.tobytes() == kern.ids.tobytes()
             and plain.dists.tobytes() == kern.dists.tobytes()):
         raise AssertionError("plain route ids/dists differ from kernel route")
@@ -2851,7 +2927,7 @@ def main(argv=None) -> int:
         f"{einsum_launches} (pq_adc_slots: the tier's micro-batches, S <= 8)")
 
     # --- 10. the per-slot engine path ------------------------------------------
-    per_slot_phase(eng, batches[1], plain, launches)
+    per_slot_phase(eng, batches[1], plain)
     # --- 11. the paper's comparison through Deployment.run ----------------------
     gt1 = gt[args.queries:2 * args.queries]
     cfg, sg, reports = compare_phase(torch, eng, ds, spec, kernel_sp, batches,
@@ -2918,17 +2994,25 @@ def main(argv=None) -> int:
         entry("pq_lut", "src/repro_torch/kernels/pq_lut/lut.cu",
               "src/repro/kernels/pq_lut/kernel.py:27",
               tier_launches["pq_lut"] + lm_launches["pq_lut"], lut["Q=1"]),
+        entry("cand_filter", "src/repro_torch/kernels/cand_filter/filter.cu",
+              None, launches["cand_filter"] + lm_launches["cand_filter"]
+              + ex_launches["cand_filter"], cand_filter["engine"]),
     ]}
     for tag, row in [("pq_adc " + t, dense[t]) for t in dense] + \
             [("bitonic_topk " + t, topk[t]) for t in topk] + \
             [("pq_adc_slots " + t, adc[t]) for t in adc] + \
-            [("pq_lut " + t, lut[t]) for t in lut]:
+            [("pq_lut " + t, lut[t]) for t in lut] + \
+            [("cand_filter " + t, cand_filter[t]) for t in cand_filter]:
         b, by = bound_ms(row["bytes"], row["ops"])
         log(f"[report] {tag}: kernel {row['ms']:.4f} ms "
             f"({alone(row)}){earlier(row)}, plain "
             f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
             f"bound {b:.5f} ms ({by})")
-    log("[report] record line times bitonic_topk at the beam merge")
+    log("[report] record line times bitonic_topk at the beam merge and "
+        "cand_filter at the engine's step, with its launches on phase 5 "
+        f"({launches['cand_filter']}) plus phase 19's "
+        f"({lm_launches['cand_filter']}) plus phase 22's "
+        f"({ex_launches['cand_filter']}); it replaces no TPU kernel")
     log(f"[report] record line: pq_adc at the tier's (1, 8, 2048) and "
         f"pq_lut at Q=1 with their launches on the tier's closed-loop run "
         f"({tier_launches['pq_lut']}) plus phase 19's retrieval "

@@ -14,7 +14,8 @@ function takes rows with a leading batch axis where the reference is
   two-pass merges.
 * ``step_disk_batched`` — one disk-search step for a table of resident
   slots: sector reads, exact distances into the rerank pool, candidate
-  dedup, PQ scoring (``adc_impl``: plain gather, the CUDA slot-ADC kernel
+  dedup (``filter_known``: the CUDA candidate filter on the card), PQ
+  scoring (``adc_impl``: plain gather, the CUDA slot-ADC kernel
   or the CUDA dense ADC kernel) and the beam/pool merges (``merge_impl``:
   two stable sorts or the CUDA bitonic top-k kernel); ``fused=False`` takes
   the two-pass merges (the reference's per-slot path).
@@ -35,6 +36,7 @@ import torch
 from repro_torch.core import pq
 from repro_torch.core.state import INF, NO_ID, QueryState, where_rows
 from repro_torch.device import SyncMeter
+from repro_torch.kernels.cand_filter.ops import filter_known
 
 I32 = torch.int32
 
@@ -287,8 +289,7 @@ def search_inmem(
         nbrs = neighbors[u.clamp(0, n - 1).long()]
         nbrs = torch.where(u[:, None] == NO_ID, NO_ID, nbrs)
         # skip nodes already in the beam or already expanded
-        known = _contains_rows(beam_ids, nbrs) | _contains_rows(vi, nbrs)
-        nbrs = torch.where(known, NO_ID, nbrs)
+        nbrs = filter_known(nbrs, beam_ids, vi)
         nd = dist_to(nbrs)
         dc = dcs + (nbrs != NO_ID).sum(1, dtype=I32)
         bi, bd, be = merge_into_beam(beam_ids, beam_dists, expl, nbrs, nd)
@@ -391,9 +392,8 @@ def step_disk(
     mark.index_put_((frontier_pos,), frontier_mask.to(I32), accumulate=True)
     beam_expl = state.beam_expl | (mark > 0)
 
-    cand = nbrs.reshape(-1)                                     # (W*R,)
-    known = _contains(state.beam_ids, cand) | _contains(pool_ids, cand)
-    cand = torch.where(known, NO_ID, cand)
+    cand = filter_known(nbrs.reshape(1, -1), state.beam_ids[None],
+                        pool_ids[None])[0]                      # (W*R,)
     cand_codes = candidate_codes(shard, cand,
                                  None if ncodes is None else ncodes[0])
     cd_flat = pq.adc(lut[None], cand_codes)[0]
@@ -472,10 +472,7 @@ def step_disk_batched(
     mark.index_put_((rows, fposs), masks.to(I32), accumulate=True)
     beam_expl = states.beam_expl | (mark > 0)
 
-    cand = nbrs.reshape(S, W * R)
-    known = _contains_rows(states.beam_ids, cand) | \
-        _contains_rows(pool_ids, cand)
-    cand = torch.where(known, NO_ID, cand)
+    cand = filter_known(nbrs.reshape(S, W * R), states.beam_ids, pool_ids)
     cand_codes = candidate_codes(shard, cand, ncodes)          # (S, W*R, M)
 
     # --- the fused scoring call: all S slots at once ------------------------

@@ -1,4 +1,5 @@
-"""Hand-written CUDA kernels, one for each TPU kernel of the reference.
+"""Hand-written CUDA kernels: one for each TPU kernel of the reference, and
+the candidate filter, which replaces none (``cand_filter/filter.cu``).
 
 ``kernels/<name>/`` holds the ``.cu`` source, ``ops.py`` (the wrapper:
 kernel on a CUDA tensor, plain version on a CPU tensor) and ``ref.py`` (the
@@ -9,12 +10,13 @@ from __future__ import annotations
 
 
 def _wrappers() -> dict:
+    from repro_torch.kernels.cand_filter.ops import filter_known
     from repro_torch.kernels.pq_adc.ops import pq_adc, pq_adc_slots_tiled
     from repro_torch.kernels.pq_lut.ops import pq_lut
     from repro_torch.kernels.topk.ops import bitonic_topk
 
     return {"pq_adc_slots": pq_adc_slots_tiled, "bitonic_topk": bitonic_topk,
-            "pq_adc": pq_adc, "pq_lut": pq_lut}
+            "pq_adc": pq_adc, "pq_lut": pq_lut, "cand_filter": filter_known}
 
 
 def launch_counts() -> dict:

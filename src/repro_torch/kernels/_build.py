@@ -44,11 +44,15 @@ SOURCES = {
     "pq_lut": ("pq_lut/lut.cu", {
         "pq_lut_launch": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP],
     }),
+    "cand_filter": ("cand_filter/filter.cu", {
+        "cand_filter_launch": [_VP, _I, _VP, _I, _VP, _I, _I, _I, _VP, _VP],
+    }),
 }
 _ERROR_STRING = {"topk": "topk_error_string",
                  "pq_adc_slots": "adc_error_string",
                  "pq_adc": "adc_dense_error_string",
-                 "pq_lut": "pq_lut_error_string"}
+                 "pq_lut": "pq_lut_error_string",
+                 "cand_filter": "cand_filter_error_string"}
 
 _loaded: dict = {}   # name -> ctypes.CDLL (one load per process)
 _load_lock = threading.Lock()

@@ -112,6 +112,112 @@ def test_kernel_wrappers_raise_on_what_they_do_not_take(cuda):
                      torch.zeros((2, 5000), dtype=torch.int32, device=cuda), 4)
 
 
+def _filter_rows(g, cuda, b, width, ids, dead):
+    """(b, width) int32 ids below ``ids`` with a fifth NO_ID; the first
+    ``dead`` rows all NO_ID (the engine's slots that do not run)."""
+    x = torch.randint(0, ids, (b, width), generator=g, device=cuda,
+                      dtype=torch.int32)
+    x[torch.rand((b, width), generator=g, device=cuda) < 0.2] = -1
+    x[:dead] = -1
+    return x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,c,ha,hb,dead", [
+    (10240, 256, 64, 256, 0),          # the engine's step
+    (10240, 256, 64, 256, 5120),       # half its rows do not run
+    (8192, 32, 16, 64, 0),             # the head search's hop
+    (8192, 32, 16, 64, 4096),
+    (1, 256, 64, 256, 0),              # the tier's one state
+    (1000, 32, 64, 128, 0),            # the Vamana build's hop
+    (37, 30, 7, 0, 3),                 # ragged widths: scalar loads
+    (5, 1, 3, 5, 0),
+    (3, 4096, 100, 12000, 0),          # the widest row, a full CTA
+])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_filter_kernel_bitwise(cuda, b, c, ha, hb, dead, offset):
+    """The kernel against its plain version at the main paths' shapes,
+    with rows that hold no live candidate, and every input 4 bytes off
+    16-byte alignment (``offset`` 1: the scalar loads)."""
+    from repro_torch.kernels.cand_filter.ops import (
+        filter_known, filter_known_ref)
+
+    g = torch.Generator(device=cuda).manual_seed(b * c + ha + hb + offset)
+    ids = ha + hb + 1          # about half the candidates are found
+
+    def place(x):
+        buf = torch.empty(x.numel() + offset, dtype=torch.int32, device=cuda)
+        out = buf[offset:].view(x.shape)
+        out.copy_(x)
+        return out
+
+    cand = place(_filter_rows(g, cuda, b, c, ids, dead))
+    a = place(_filter_rows(g, cuda, b, ha, ids, 0))
+    h = place(_filter_rows(g, cuda, b, hb, ids, 0))
+    before = filter_known.launches
+    got = filter_known(cand, a, h)
+    torch.cuda.synchronize()
+    assert filter_known.launches == before + 1
+    want = filter_known_ref(cand, a, h)
+    assert torch.equal(got, want)
+    assert (got[:dead] == -1).all()
+    if b * c >= 64:
+        assert (want[dead:] != -1).any()
+        assert (want[dead:] != cand[dead:]).any()
+
+
+@pytest.mark.gpu
+def test_filter_wrapper_raises_on_widths_it_does_not_take(cuda):
+    from repro_torch.kernels.cand_filter.ops import filter_known
+
+    def ids(b, w):
+        return torch.zeros((b, w), dtype=torch.int32, device=cuda)
+
+    with pytest.raises(ValueError, match="the filter takes C"):
+        filter_known(ids(2, 4097), ids(2, 8), ids(2, 8))
+    with pytest.raises(ValueError, match="the filter takes C"):
+        filter_known(ids(2, 32), ids(2, 6000), ids(2, 6300))
+    with pytest.raises(TypeError):
+        filter_known(ids(2, 32), ids(2, 8).long(), ids(2, 8))
+    with pytest.raises(ValueError, match="one device"):
+        filter_known(ids(2, 32), ids(2, 8).cpu(), ids(2, 8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("merge_impl", ["lexsort", "bitonic"])
+def test_filter_launches_once_a_step_and_a_head_hop(cuda, merge_impl):
+    """One ``run_simulated`` call on the card: the filter runs once a
+    ``step_disk_batched`` (the meter's summed ``Step.local_steps``) and once
+    a ``search_inmem`` hop of the head search (its loop flags less the last
+    one), and on no other path."""
+    import numpy as np
+
+    from repro_torch.api.engine import BatonEngine
+    from repro_torch.configs.batann_serve import IndexSpec, SearchParams
+    from repro_torch.core import baton
+    from repro_torch.data import synth
+    from repro_torch.device import SyncMeter
+    from repro_torch.kernels.cand_filter.ops import filter_known
+
+    ds = synth.make_dataset("deep", n=3000, n_queries=64, seed=2,
+                            compute_gt_k=0, device="cuda")
+    eng = BatonEngine(device="cuda")
+    eng.build(ds, IndexSpec(p=4, r=24, pq_m=24, pq_k=256))
+    cfg = eng.baton_params(SearchParams(L=32, W=4, pool=128, slots=16,
+                                        adc_impl="mxu_tiled",
+                                        merge_impl=merge_impl))
+    q = np.asarray(ds.queries, np.float32)         # 64 = 16 a partition
+    head = SyncMeter()
+    eng.index.head_starts(torch.as_tensor(q, device=cuda), cfg.n_starts, head)
+    meter = SyncMeter()
+    before = filter_known.launches
+    baton.run_simulated(eng.index, q, cfg, meter=meter)
+    torch.cuda.synchronize()
+    local_steps = sum(s.local_steps for s in meter.loops[-1].steps)
+    assert local_steps > 0 and head.count > 1
+    assert filter_known.launches - before == local_steps + head.count - 1
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,q,n,m,k", [
     (8, 32, 8192, 24, 256),      # the engine's mxu route: one block a partition

@@ -506,3 +506,70 @@ def test_new_plans_wrappers_on_cpu_run_the_plain_versions():
                        adc_slots_ref(luts, codes))
     assert torch.equal(pq_lut(queries, cent), pq_lut_ref(queries, cent))
     assert (pq_adc_slots_tiled.launches, pq_lut.launches) == before
+
+
+# --- the candidate filter's tiling (filter.cu)
+
+from repro_torch.kernels.cand_filter.ops import (  # noqa: E402
+    CHUNK, CTA_THREADS, MAX_SMEM as FILTER_SMEM, PER_THREAD, filter_known,
+    filter_known_ref, filter_plan, filter_smem)
+
+
+@pytest.mark.parametrize("b,c,ha,hb,rows,threads", [
+    (10240, 256, 64, 256, 1, 64),     # the engine's step: one row a CTA
+    (8192, 32, 16, 64, 8, 64),        # the head search's hop: eight
+    (3, 32, 16, 64, 3, 24),           # no more rows a CTA than the call has
+    (100, 1, 3, 5, 64, 64),
+    (4, 4096, 0, 8, 1, 1024),         # the widest row
+    (50, 32, 3000, 0, 4, 32),         # rows cut by shared memory
+])
+def test_filter_plan_rows_a_cta(b, c, ha, hb, rows, threads):
+    plan = filter_plan(b, c, ha, hb)
+    assert (plan.rows, plan.threads) == (rows, threads)
+    assert plan.smem == filter_smem(rows, ha, hb) <= FILTER_SMEM
+
+
+@settings(max_examples=200, deadline=None)
+@given(b=st.integers(1, 20000), c=st.integers(1, 4096),
+       ha=st.integers(0, 4000), hb=st.integers(0, 4000))
+def test_filter_plan_covers_every_row_once(b, c, ha, hb):
+    """CTA x takes rows x * rows .. + rows - 1: every row once, no CTA
+    past the last row, within a CTA's threads and shared memory."""
+    plan = filter_plan(b, c, ha, hb)
+    assert plan.grid * plan.rows >= b > (plan.grid - 1) * plan.rows
+    assert plan.threads == plan.rows * -(-c // PER_THREAD) <= 1024
+    assert plan.smem <= FILTER_SMEM
+    assert plan.rows == 1 or plan.threads <= CTA_THREADS
+
+
+@pytest.mark.parametrize("c,ha,hb", [(4097, 8, 8), (32, 6000, 6300),
+                                     (32, 12289, 0)])
+def test_filter_plan_refuses_what_a_cta_does_not_hold(c, ha, hb):
+    with pytest.raises(ValueError, match="the filter takes"):
+        filter_plan(8, c, ha, hb)
+
+
+def test_filter_launcher_takes_the_plans_rules():
+    """``filter.cu`` holds PER_THREAD candidates a thread, stages both
+    haystacks padded to 4 ids, then to a chunk of CHUNK int4, and refuses
+    what the plan refuses."""
+    src = _build.source_path("cand_filter").read_text()
+    assert f"constexpr int kPerThread = {PER_THREAD};" in src
+    assert f"constexpr int kChunk = {CHUNK};" in src
+    assert FILTER_SMEM == 48 * 1024
+    assert "constexpr int kMaxSmem = 48 * 1024;" in src
+    assert ("const long long smem = 16LL * rows_per_cta *\n"
+            "      (((ha + 3) / 4 + (hb + 3) / 4 + kChunk - 1) / kChunk * "
+            "kChunk);" in src)
+    assert filter_smem(2, 3, 5) == 2 * 8 * 16
+    assert filter_smem(1, 64, 256) == 80 * 16       # whole chunks already
+
+
+def test_filter_wrapper_on_cpu_runs_the_plain_version():
+    g = torch.Generator().manual_seed(2)
+    cand = torch.randint(-1, 30, (6, 40), generator=g, dtype=torch.int32)
+    a = torch.randint(-1, 30, (6, 7), generator=g, dtype=torch.int32)
+    h = torch.randint(-1, 30, (6, 12), generator=g, dtype=torch.int32)
+    before = filter_known.launches
+    assert torch.equal(filter_known(cand, a, h), filter_known_ref(cand, a, h))
+    assert filter_known.launches == before

@@ -2,7 +2,8 @@
 reference's Pallas wrappers in interpret mode; the build and launch
 plumbing that runs without a card.
 
-Tolerances: the ADC and top-k wrappers are bitwise equal to the reference's
+Tolerances: the ADC and top-k wrappers and the candidate filter are
+bitwise equal to the reference's
 (the dense ADC's interpret-mode accumulation 0 + p0 + p1 + ... gives the
 gather's left-to-right sum exactly).  The LUT build is a float formula in
 another order than XLA's dot: rtol 1e-4, atol 1e-4, the reference's own
@@ -24,6 +25,7 @@ from repro_torch import kernels
 from repro_torch.core import beam_search as tbs
 from repro_torch.kernels import _build
 from repro_torch.core import pq as tpq
+from repro_torch.kernels.cand_filter.ops import filter_known
 from repro_torch.kernels.pq_adc.ops import (
     pq_adc, pq_adc_slots, pq_adc_slots_tiled)
 from repro_torch.kernels.pq_lut.ops import pq_lut
@@ -178,6 +180,55 @@ def test_bitonic_merge_packed_flags_bit_identical(L, c, seed):
         np.testing.assert_array_equal(x.numpy(), np.asarray(w))
 
 
+def _filter_case(rng, b, c, ha, hb, ids):
+    """Candidates and two haystacks drawn from ``ids`` ids, so that ids
+    repeat within each and across them, with NO_ID padding in all three
+    and row 0 of the candidates all NO_ID."""
+    def draw(w):
+        x = rng.integers(0, ids, size=(b, w)).astype(np.int32)
+        x[rng.random((b, w)) < 0.2] = -1
+        x[:, w - 1:] = x[:, :min(w, 1)]       # a repeat in every row
+        return x
+
+    cand, a, h = draw(c), draw(ha), draw(hb)
+    cand[0] = -1
+    return cand, a, h
+
+
+def _filter_jax(cand, a, h):
+    c = jnp.asarray(cand)
+    known = (rbs._contains_rows(jnp.asarray(a), c)
+             | rbs._contains_rows(jnp.asarray(h), c))
+    return np.asarray(jnp.where(known, -1, c))
+
+
+@pytest.mark.parametrize("c,ha,hb", [(256, 64, 256), (32, 16, 64), (1, 3, 5)])
+def test_filter_known_bitwise_vs_jax(c, ha, hb):
+    """The engine's step (W·R = 256 against L = 64 and the pool of 256),
+    the head search's hop (R = 32 against L = 16 and 64 visited) and a
+    ragged shape: NO_ID padding in all three inputs, ids repeated within a
+    haystack and within the candidates, an all-NO_ID row."""
+    rng = np.random.default_rng(c + ha + hb)
+    cand, a, h = _filter_case(rng, 5, c, ha, hb, ids=max(8, c + ha))
+    got = filter_known(*map(torch.tensor, (cand, a, h)))
+    want = _filter_jax(cand, a, h)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want == -1).any() and (want[1:] != -1).any()
+    assert (got[0] == -1).all()
+
+
+@settings(max_examples=12, deadline=None)
+@given(c=st.sampled_from([1, 5, 40]), ha=st.sampled_from([0, 3, 16]),
+       hb=st.sampled_from([0, 7]), ids=st.integers(1, 64),
+       seed=st.integers(0, 2**16))
+def test_filter_known_property_vs_jax(c, ha, hb, ids, seed):
+    """Ragged and empty widths, and any density of hits (widths from a few
+    values, so that the reference's shapes repeat and it compiles little)."""
+    cand, a, h = _filter_case(np.random.default_rng(seed), 3, c, ha, hb, ids)
+    got = filter_known(*map(torch.tensor, (cand, a, h)))
+    np.testing.assert_array_equal(got.numpy(), _filter_jax(cand, a, h))
+
+
 def test_cpu_wrappers_launch_nothing():
     kernels.reset_launch_counts()
     bitonic_topk(torch.zeros((2, 8)), torch.zeros((2, 8), dtype=torch.int32),
@@ -186,8 +237,11 @@ def test_cpu_wrappers_launch_nothing():
                        torch.zeros((2, 8, 4), dtype=torch.uint8))
     pq_adc(torch.zeros((2, 4, 16)), torch.zeros((8, 4), dtype=torch.uint8))
     pq_lut(torch.zeros((2, 8)), torch.zeros((2, 16, 4)))
+    ids = torch.zeros((2, 8), dtype=torch.int32)
+    filter_known(ids, ids[:, :3].contiguous(), ids)
     assert kernels.launch_counts() == {"pq_adc_slots": 0, "bitonic_topk": 0,
-                                       "pq_adc": 0, "pq_lut": 0}
+                                       "pq_adc": 0, "pq_lut": 0,
+                                       "cand_filter": 0}
 
 
 def test_wrappers_validate_shapes():
@@ -207,6 +261,15 @@ def test_wrappers_validate_shapes():
     with pytest.raises(ValueError, match="lut impl"):
         tpq.build_lut(torch.zeros((2, 16, 4)), torch.zeros((2, 8)),
                       impl="dense")
+    ids = torch.zeros((2, 8), dtype=torch.int32)
+    with pytest.raises(TypeError, match="int32"):
+        filter_known(ids, ids.long(), ids)
+    with pytest.raises(ValueError, match="B = 2"):
+        filter_known(ids, torch.zeros((3, 8), dtype=torch.int32), ids)
+    with pytest.raises(ValueError, match="contiguous"):
+        filter_known(ids, torch.zeros((8, 2), dtype=torch.int32).t(), ids)
+    with pytest.raises(ValueError, match="one device"):
+        filter_known(ids, ids, ids.to("meta"))
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
