@@ -23,13 +23,15 @@ Phases (any failure exits non-zero; nothing is swallowed):
    the mean of calls queued back to back between CUDA events, and the
    line says so): the slot
    ADC at the engine's (S, C) = (256, 256), the scatter-gather search's
-   (8192, 256) (P * B = 8 * 1024 branches), the tier's (8, 256) and (1,
+   (8192, 256) (P * B = 8 * 1024 branches) and (81,920, 256) (the SG
+   cell's 10 * 8192, past grid y's 65,535), the tier's (8, 256) and (1,
    256), the ragged (100, 200), a LUT past shared memory (M = 256) and
    phase 22's examples' (S, C, M, K): the quickstart's (128, 192, 24,
    256), the distributed demo's (192, 160, 24, 128) and the RAG demo's
    (64, 64, 16, 64): every tile and route of ``adc_slots_plan``, printed;
    the bitonic top-k (the beam and pool merges at the engine's 256 rows
-   and the scatter-gather search's 8192, the beam merges of the
+   and the scatter-gather search's 8192, the SG cell's 81,920 rows (beam
+   L 768 + 256, pool 256 + 8), the beam merges of the
    quickstart (L 48 + 192), the distributed demo (L 40 + 160) and the RAG
    demo (L 32 + 64), rows that pad to 32, 64, 1024 and 4096: every route
    and register count of ``topk_plan``, printed), the dense
@@ -42,9 +44,10 @@ Phases (any failure exits non-zero; nothing is swallowed):
    ``lut_plan``, printed), each LUT also checked independent of its batch;
    and the candidate filter at the engine's step (B; C | Ha + Hb) =
    (10,240; 256 | 64 + 256), with half its rows holding no live candidate,
-   the head search's hop (8192; 32 | 16 + 64), the tier's one state and a
-   Vamana build's hop (1024; 32 | 64 + 128), its library yardstick the
-   broadcast ``==`` and ``any`` over both haystacks at once;
+   the SG cell's hop (81,920; 256 | 768 + 256), whole and with all but 256
+   rows finished, the head search's hop (8192; 32 | 16 + 64), the tier's
+   one state and a Vamana build's hop (1024; 32 | 64 + 128), its library
+   yardstick the broadcast ``==`` and ``any`` over both haystacks at once;
 4. build the ``batann-serve`` index on the card: DEEP-like synthetic data,
    d = 96, n = 1,000,000, P = 8, R = 32, kNN k = 17, PQ M = 24, K = 256,
    head fraction 0.01 (each build stage timed);
@@ -473,6 +476,8 @@ def check_adc(torch, gen, dev) -> dict:
     rows = {}
     for tag, (s, c, m, k) in (("slice", (256, 256, 24, 256)),
                               ("SG", (8192, 256, 24, 256)),
+                              # the SG cell: P * B = 10 * 8192 branches
+                              ("SG cell", (81920, 256, 24, 256)),
                               ("tier", (8, 256, 24, 256)),
                               ("tier S=1", (1, 256, 24, 256)),
                               ("ragged", (100, 200, 24, 256)),
@@ -525,6 +530,9 @@ def check_topk(torch, gen, dev) -> dict:
              ("pool", 256, 256, 8, 256, False),
              ("SG beam", 8192, 64, 256, 64, False),
              ("SG pool", 8192, 256, 8, 256, False),
+             # the SG cell: 10 * 8192 branch rows, L 768 + W * R
+             ("SG cell beam", 81920, 768, 256, 768, False),
+             ("SG cell pool", 81920, 256, 8, 256, False),
              ("short", 256, 20, 12, 10, False),          # pads to 32
              ("short 64", 256, 40, 24, 16, False),       # pads to 64
              ("dups", 64, 600, 400, 100, True),          # pads to 1024
@@ -691,6 +699,8 @@ def check_filter(torch, gen, dev) -> dict:
             ("engine", (10240, 256, 64, 256, 0)),
             ("engine half idle", (10240, 256, 64, 256, 5120)),
             ("head search", (8192, 32, 16, 64, 0)),
+            ("SG cell", (81920, 256, 768, 256, 0)),
+            ("SG cell late hop", (81920, 256, 768, 256, 81920 - 256)),
             ("tier", (1, 256, 64, 256, 0)),
             ("Vamana build", (1024, 32, 64, 128, 0))):
         def ids(w, dead_rows=0):

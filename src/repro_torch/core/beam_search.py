@@ -536,9 +536,15 @@ def search_disk(
     run in lock step, one ``step_disk_batched`` for all of them per hop,
     and a row whose condition fails is frozen (its step result discarded),
     as the batched ``while_loop`` carries it unchanged.  One device->host
-    sync per hop decides whether any row is still live.  ``parts`` names
-    the stacked shard's row each search reads sectors from (default 0: a
-    single server); ``luts`` default to ``pq.build_lut(codebook, query)``.
+    sync per hop decides whether any row is still live: it brings the live
+    rows of each partition to the host.  ``parts`` names the stacked
+    shard's row each search reads sectors from (default 0: a single
+    server); ``luts`` default to ``pq.build_lut(codebook, query)``.
+
+    ``meter`` receives a ``Loop`` of one ``Step`` a hop (``active``: the
+    hop's live rows a partition; ``delivered``: the rows that finished in
+    it; ``local_steps`` 1), recorded at the count that closes the hop, and
+    with spans on a ``hop`` span a hop.
     """
     meter = meter or SyncMeter()
     b = states.beam_ids.shape[0]
@@ -547,16 +553,28 @@ def search_disk(
         parts = torch.zeros(b, dtype=I32, device=dev)
     if luts is None:
         luts = pq.build_lut(codebook, states.query)
-    st = states
-    while True:
+    n_parts = shard.vectors.shape[0]
+    rows_of = parts.long()
+
+    def live_rows(st):
         fpos, _, fvalid = select_frontier(st.beam_ids, st.beam_expl, w)
         live = fvalid[:, 0] & (st.counters.hops < max_hops) & ~st.done
-        if not meter.flag(live.any()):
-            break
-        new = step_disk_batched(st, shard, luts, fvalid & live[:, None], fpos,
-                                parts, adc_impl=adc_impl,
-                                merge_impl=merge_impl, fused=fused)
-        st = where_rows(live, new, st)
+        counts = torch.zeros(n_parts, dtype=I32, device=dev).index_add_(
+            0, rows_of, live.to(I32))
+        return fpos, fvalid, live, meter.host(counts).numpy()
+
+    meter.loop(b)
+    st = states
+    fpos, fvalid, live, active = live_rows(st)
+    while active.any():
+        with meter.span("hop"):
+            new = step_disk_batched(st, shard, luts, fvalid & live[:, None],
+                                    fpos, parts, adc_impl=adc_impl,
+                                    merge_impl=merge_impl, fused=fused)
+            st = where_rows(live, new, st)
+            fpos, fvalid, live, after = live_rows(st)
+        meter.step(int(active.sum() - after.sum()), 1, active)
+        active = after
     return st._replace(done=torch.ones_like(st.done))
 
 

@@ -177,7 +177,11 @@ def run_simulated(
     Returns numpy ``(ids (B, k), dists (B, k), stats)``: the reference's
     stats dict (counters summed over partitions, ``max_part_hops`` and the
     (B, P) ``part_*`` branch counters, in its order), then the host syncs
-    of the run and the seconds the host spent blocked in them.
+    of the run and the seconds the host spent blocked in them.  ``meter``
+    also receives the lock-step loop's ``Loop`` (a ``Step`` a hop, from
+    ``search_disk``), and with spans on the call's ``call`` span with
+    children ``lut``, ``seed`` (the start ADC and ``init_state``), ``hops``
+    (the loop, a ``hop`` span a hop) and ``gather`` (map back and merge).
     """
     if adc_impl == "mxu":
         raise ValueError(
@@ -190,38 +194,46 @@ def run_simulated(
     count0, sec0 = meter.count, meter.seconds
     P = index.p
     dev = index.device
-    q = torch.as_tensor(np.asarray(queries, np.float32), device=dev)
-    B = q.shape[0]
-    npmax = index.part_vectors.shape[1]
-    shard = index.flat_shard()
+    with meter.call():
+        q = torch.as_tensor(np.asarray(queries, np.float32), device=dev)
+        B = q.shape[0]
+        npmax = index.part_vectors.shape[1]
+        shard = index.flat_shard()
 
-    # one LUT per query, shared by its P branches (row p·B + b)
-    luts = pq.build_lut(index.codebook, q, impl=lut_impl).repeat(P, 1, 1)
-    parts = torch.arange(P, dtype=I32, device=dev).repeat_interleave(B)
-    starts = (index.part_medoid + torch.arange(P, dtype=I32, device=dev)
-              * npmax).repeat_interleave(B)[:, None]             # (P·B, 1)
-    sd = pq.adc_slots(luts, shard.codes[starts.long()])
-    states = init_state(q.repeat(P, 1), starts, sd, L=L, P=pool)
-    out = search_disk(states, shard, w=W, max_hops=max_hops, parts=parts,
-                      luts=luts, adc_impl=adc_impl, merge_impl=merge_impl,
-                      meter=meter)
+        with meter.span("lut"):
+            # one LUT per query, shared by its P branches (row p·B + b)
+            luts = pq.build_lut(index.codebook, q, impl=lut_impl).repeat(
+                P, 1, 1)
+        with meter.span("seed"):
+            parts = torch.arange(P, dtype=I32, device=dev).repeat_interleave(B)
+            starts = (index.part_medoid + torch.arange(P, dtype=I32,
+                                                       device=dev)
+                      * npmax).repeat_interleave(B)[:, None]     # (P·B, 1)
+            sd = pq.adc_slots(luts, shard.codes[starts.long()])
+            states = init_state(q.repeat(P, 1), starts, sd, L=L, P=pool)
+        with meter.span("hops"):
+            out = search_disk(states, shard, w=W, max_hops=max_hops,
+                              parts=parts, luts=luts, adc_impl=adc_impl,
+                              merge_impl=merge_impl, meter=meter)
+        with meter.span("gather"):
+            # flat ids -> global ids
+            ids_f = out.pool_ids[:, :k]
+            l2g = index.local2global.reshape(-1)
+            gids = torch.where(ids_f == NO_ID, NO_ID,
+                               l2g[ids_f.clamp(0, P * npmax - 1).long()])
+            # gather & reduce: merge the P·k candidates by exact distance,
+            # stable
+            gids = gids.reshape(P, B, k).transpose(0, 1).reshape(B, P * k)
+            gdist = out.pool_dists[:, :k].reshape(P, B, k).transpose(0, 1) \
+                .reshape(B, P * k)
+            order = torch.argsort(gdist, dim=1, stable=True)[:, :k]
+            out_ids = gids.gather(1, order).cpu().numpy()
+            out_dists = gdist.gather(1, order).cpu().numpy()
 
-    # flat ids -> global ids
-    ids_f = out.pool_ids[:, :k]
-    l2g = index.local2global.reshape(-1)
-    gids = torch.where(ids_f == NO_ID, NO_ID,
-                       l2g[ids_f.clamp(0, P * npmax - 1).long()])
-    # gather & reduce: merge the P·k candidates by exact distance (stable)
-    gids = gids.reshape(P, B, k).transpose(0, 1).reshape(B, P * k)
-    gdist = out.pool_dists[:, :k].reshape(P, B, k).transpose(0, 1) \
-        .reshape(B, P * k)
-    order = torch.argsort(gdist, dim=1, stable=True)[:, :k]
-    out_ids = gids.gather(1, order).cpu().numpy()
-    out_dists = gdist.gather(1, order).cpu().numpy()
-
-    c = out.counters
-    per_part = torch.stack([c.hops, c.inter_hops, c.dist_comps, c.reads],
-                           -1).reshape(P, B, 4).cpu().numpy().astype(np.int64)
+        c = out.counters
+        per_part = torch.stack(
+            [c.hops, c.inter_hops, c.dist_comps, c.reads],
+            -1).reshape(P, B, 4).cpu().numpy().astype(np.int64)
     st = per_part.sum(0)                                # (B, 4) summed over P
     return out_ids, out_dists, {
         "hops": st[:, 0], "inter_hops": st[:, 1],

@@ -60,7 +60,7 @@ def timed(timings: "dict | None", name: str, device: torch.device):
 
 
 def clock_ns() -> int:
-    """The clock of spans and super-step records: Unix-epoch nanoseconds,
+    """The clock of spans and loop records: Unix-epoch nanoseconds,
     the clock ``torch.profiler`` (Kineto) stamps its events with, so a span
     can be laid over a device trace of the same process."""
     return time.time_ns()
@@ -80,10 +80,14 @@ class Span:
 
 
 class Step(NamedTuple):
-    """One super-step of the baton engine's loop, recorded after its
-    closing count reached the host: the stamp, the queries delivered in it,
-    the iterations of its ``local_advance`` loop, and the occupied slots of
-    each partition after ``merge_recv`` (a (P,) array)."""
+    """One step of an engine's loop, recorded after its closing count
+    reached the host: the stamp, what finished in it, its inner iterations
+    and a (P,) array a partition.  A super-step of the baton engine:
+    queries delivered, the iterations of its ``local_advance`` loop, and
+    the occupied slots after ``merge_recv``.  A lock-step hop of
+    ``beam_search.search_disk`` (the scatter-gather baseline's loop):
+    branch rows that finished in the hop, 1, and the rows the hop
+    advanced (its live branches)."""
 
     t_ns: int
     delivered: int
@@ -93,8 +97,9 @@ class Step(NamedTuple):
 
 @dataclasses.dataclass
 class Loop:
-    """The super-step loop of one call: its start stamp, the padded batch
-    it serves and its ``Step`` records."""
+    """The loop of one call: its start stamp, the rows it serves (the
+    baton engine's padded batch; the scatter-gather baseline's P·B branch
+    rows) and its ``Step`` records."""
 
     call: int
     t0_ns: int
@@ -127,10 +132,12 @@ class SyncMeter:
     the host spends blocked in them (waiting for queued device work).
 
     It is also the engines' one in-program recorder: the baton engine's
-    loop appends a ``Loop`` of per-super-step ``Step`` records to ``loops``
-    (always; they cost no sync), and with ``spans=True`` every phase it
-    enters appends a ``Span`` to ``spans``.  With spans off, ``span()``
-    returns a shared no-op context.  Everything stays in memory."""
+    super-step loop and ``search_disk``'s lock-step hops (the
+    scatter-gather baseline) append a ``Loop`` of ``Step`` records to
+    ``loops`` (always; they cost no sync), and with ``spans=True`` every
+    phase they enter appends a ``Span`` to ``spans``.  With spans off,
+    ``span()`` returns a shared no-op context.  Everything stays in
+    memory."""
 
     def __init__(self, spans: bool = False):
         self.count = 0
@@ -153,11 +160,11 @@ class SyncMeter:
         return self.span("call")
 
     def loop(self, batch: int) -> None:
-        """Stamp the start of the current call's super-step loop."""
+        """Stamp the start of the current call's loop."""
         self.loops.append(Loop(self.call_id, clock_ns(), batch, []))
 
     def step(self, delivered: int, local_steps: int, active) -> None:
-        """Record a super-step of the current loop (stamped now)."""
+        """Record a step of the current loop (stamped now)."""
         self.loops[-1].steps.append(
             Step(clock_ns(), delivered, local_steps, active))
 

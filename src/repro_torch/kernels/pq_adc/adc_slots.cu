@@ -12,8 +12,10 @@
 // Bound: bytes.  The LUTs, the codes and the output each cross device memory
 // once (about 8 MB at S = C = 256, M = 24, K = 256: 2.4 us).
 //
-// Design: one CTA per (tile of `tile` candidates, slot), a thread a
-// candidate; the tile and the route come from ops.py::adc_slots_plan.
+// Design: one CTA per (slot, tile of `tile` candidates), a thread a
+// candidate; the slot is grid x (up to 2^31 - 1 slots: a scatter-gather call
+// of 8192 queries over 10 partitions is 81,920), the candidate tile grid y;
+// the tile and the route come from ops.py::adc_slots_plan.
 //   staged (calls that cannot fill the card, where latency counts): the
 //     slot's LUT (24 KB at M = 24, K = 256) and the CTA's code tile (one
 //     contiguous span) go into shared memory by 16-byte cp.async, both in
@@ -87,8 +89,8 @@ adc_slots_staged(const float* __restrict__ luts,
                  const uint8_t* __restrict__ codes, float* __restrict__ out,
                  int C, int M, int K) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int s = blockIdx.y;
-  const int c0 = blockIdx.x * blockDim.x;
+  const int s = blockIdx.x;
+  const int c0 = blockIdx.y * blockDim.x;
   const int nc = min(static_cast<int>(blockDim.x), C - c0);
 
   // --- stage the LUT and the code tile, all copies in flight at once
@@ -114,8 +116,8 @@ __global__ void __launch_bounds__(kMaxTile)
 adc_slots_direct(const float* __restrict__ luts,
                  const uint8_t* __restrict__ codes, float* __restrict__ out,
                  int C, int M, int K) {
-  const int s = blockIdx.y;
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  const int s = blockIdx.x;
+  const int c = blockIdx.y * blockDim.x + threadIdx.x;
   if (c >= C) return;
   const bool words =
       (M & 3) == 0 && (reinterpret_cast<uintptr_t>(codes) & 3) == 0;
@@ -134,15 +136,17 @@ extern "C" {
 // `tile` candidates (and threads) a CTA and the route (staged != 0: the
 // staged route) come from ops.py::adc_slots_plan.  A tile the kernel does
 // not take (not a multiple of 32 in 32..256), or whose shared memory or
-// grid exceeds the card's limits, returns cudaErrorInvalidValue without
-// launching.
+// candidate tiles (grid y) exceed the card's limits, returns
+// cudaErrorInvalidValue without launching.
 int adc_slots_launch(const float* luts, const uint8_t* codes, float* out,
                      int S, int C, int M, int K, int tile, int staged,
                      void* stream) {
   if (S == 0 || C == 0) return 0;
-  if (tile < 32 || tile > kMaxTile || tile % 32 != 0 || S > 65535 || M < 1)
+  if (tile < 32 || tile > kMaxTile || tile % 32 != 0 || M < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((C + tile - 1) / tile, S);
+  const int tiles = (C + tile - 1) / tile;
+  if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(S, tiles);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (staged) {
     const size_t smem = lut_region(M, K) + code_region(tile, M);

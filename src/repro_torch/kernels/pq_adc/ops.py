@@ -129,8 +129,8 @@ class SlotsPlan(NamedTuple):
     """The slot-tiled kernel's tiling of one call: ``tile`` candidates (and
     threads) a CTA, the route (``"staged"``: the slot's LUT and the code
     tile in shared memory; ``"direct"``: lookups through L1, no shared
-    memory), its dynamic shared memory in bytes and the grid (candidate
-    tiles, slots)."""
+    memory), its dynamic shared memory in bytes and the grid (slots,
+    candidate tiles)."""
     tile: int
     route: str
     smem: int
@@ -149,19 +149,21 @@ def adc_slots_plan(s: int, c: int, m: int, k: int,
     where every CTA still has an SM of its own, else 256 (shorter tiles
     have too few threads to stage a LUT quickly).  A LUT past shared memory
     takes the direct route.  At M = 24, K = 256: (256, 256) direct 256, the
-    ragged (100, 200) staged 256, the tier's S <= 8 staged 128.  Raises if
-    S exceeds the launch grid.
+    ragged (100, 200) staged 256, the tier's S <= 8 staged 128.  The slots
+    are grid x, so S may reach 2^31 - 1 (the scatter-gather baseline's
+    P·B branch rows); raises if the candidate tiles exceed grid y.
     """
-    if s > MAX_GRID_YZ:
-        raise ValueError(f"no slot-ADC tiling fits S={s} (S must fit the "
-                         f"launch grid)")
     if s * -(-c // 256) >= sms:
         tile, route = 256, "direct"
     else:
         tile = 128 if s * -(-c // 128) <= sms else 256
         route = "staged" if adc_smem(tile, m, k) <= MAX_SMEM else "direct"
     smem = adc_smem(tile, m, k) if route == "staged" else 0
-    return SlotsPlan(tile, route, smem, (-(-c // tile), s))
+    grid = (s, -(-c // tile))
+    if grid[1] > MAX_GRID_YZ:
+        raise ValueError(f"no slot-ADC tiling fits C={c} (C's tiles must "
+                         f"fit the launch grid's y)")
+    return SlotsPlan(tile, route, smem, grid)
 
 
 def pq_adc(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:

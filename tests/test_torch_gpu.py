@@ -386,14 +386,33 @@ def test_adc_slots_every_tiling_bitwise(cuda, s, c, m, k, tile, route,
 
 
 @pytest.mark.gpu
+def test_adc_slots_scatter_gather_call_bitwise(cuda):
+    """The scatter-gather baseline's call of 8192 queries over 10
+    partitions: 81,920 slots, past grid y's 65,535, on the direct route."""
+    from repro_torch.kernels.pq_adc.ops import (
+        adc_slots_plan, adc_slots_ref, pq_adc_slots_tiled, sm_count)
+
+    s, c, m, k = 81920, 256, 24, 256
+    assert adc_slots_plan(s, c, m, k, sm_count(cuda))[:2] == (256, "direct")
+    g = torch.Generator(device=cuda).manual_seed(27)
+    luts = torch.randn((s, m, k), generator=g, device=cuda)
+    codes = torch.randint(0, k, (s, c, m), generator=g, device=cuda,
+                          dtype=torch.uint8)
+    got = pq_adc_slots_tiled(luts, codes)
+    torch.cuda.synchronize()
+    assert torch.equal(got, adc_slots_ref(luts, codes))
+
+
+@pytest.mark.gpu
 def test_planned_wrappers_raise_beyond_the_launch_grid(cuda):
     from repro_torch.kernels.pq_adc.ops import pq_adc_slots_tiled
     from repro_torch.kernels.pq_lut.ops import pq_lut
 
+    # the slots are grid x (any S); C's tiles of 256 are grid y
     with pytest.raises(ValueError, match="tiling"):
-        pq_adc_slots_tiled(torch.zeros((65536, 1, 16), device=cuda),
-                           torch.zeros((65536, 1, 1), dtype=torch.uint8,
-                                       device=cuda))
+        pq_adc_slots_tiled(torch.zeros((1, 1, 16), device=cuda),
+                           torch.zeros((1, 65535 * 256 + 1, 1),
+                                       dtype=torch.uint8, device=cuda))
     with pytest.raises(ValueError, match="tiling"):
         pq_lut(torch.zeros((1, 65536), device=cuda),
                torch.zeros((65536, 16, 1), device=cuda))

@@ -388,23 +388,30 @@ def test_lut_launcher_takes_the_plans_rules():
 
 
 def _slots_coverage(plan: SlotsPlan, s: int, c: int) -> np.ndarray:
-    """How many CTAs write each (slot, candidate), from the grid as
-    ``adc_slots.cu`` indexes it (c0 = x * tile, slot y)."""
-    hits = np.zeros((s, c), np.int64)
-    for x in range(plan.grid[0]):
-        assert x * plan.tile < c            # no CTA past the last candidate
-        hits[:plan.grid[1], x * plan.tile:(x + 1) * plan.tile] += 1
+    """How many CTAs write each candidate of every slot, from the grid as
+    ``adc_slots.cu`` indexes it (slot x, c0 = y * tile), without building
+    the (S, C) output: every slot below grid x gets the same candidate
+    tiles, so each output is written once where grid x is S and each
+    candidate's count is 1."""
+    assert plan.grid[0] == s                # a CTA column per slot, no more
+    hits = np.zeros(c, np.int64)
+    for y in range(plan.grid[1]):
+        assert y * plan.tile < c            # no CTA past the last candidate
+        hits[y * plan.tile:(y + 1) * plan.tile] += 1
     return hits
 
 
 @settings(max_examples=200, deadline=None)
-@given(s=st.integers(1, 600), c=st.integers(1, 3000),
+@given(s=st.one_of(st.integers(1, 600), st.integers(65_535, 200_000)),
+       c=st.integers(1, 3000),
        m=st.sampled_from([1, 4, 5, 8, 16, 24, 32, 64]),
        k=st.sampled_from([1, 16, 64, 128, 256]))
 def test_adc_slots_plan_covers_every_output_once(s, c, m, k):
+    """Slot counts past grid y's 65,535 included (the scatter-gather
+    baseline's P·B branch rows)."""
     plan = adc_slots_plan(s, c, m, k)
     assert (_slots_coverage(plan, s, c) == 1).all()
-    assert plan.grid[1] == s and plan.tile in (128, 256)
+    assert plan.grid[0] == s and plan.tile in (128, 256)
     assert plan.route in ("staged", "direct")
     # the card is full: direct; else staged, unless the LUT does not fit
     full = s * -(-c // 256) >= SMS
@@ -438,6 +445,8 @@ def test_adc_slots_plan_fills_the_card(s, c, least):
     (8, 256, 24, 256, 128, "staged"),       # the tier's micro-batch
     (1, 256, 24, 256, 128, "staged"),
     (4, 256, 256, 256, 128, "direct"),      # a LUT past shared memory
+    (10240, 256, 24, 256, 256, "direct"),   # the baton cells' P * slots
+    (81920, 256, 24, 256, 256, "direct"),   # scatter-gather: P * B = 10 x 8192
 ])
 def test_adc_slots_plan_reaches_every_tile_and_route(s, c, m, k, tile, route):
     """Each tile and both routes are the plan's choice at some shape: the
@@ -454,10 +463,19 @@ def test_adc_slots_plan_respects_shared_memory_and_grid():
     # M = 64 staged: a 64 KB LUT beside the code tile
     plan = adc_slots_plan(16, 256, 64, 256)
     assert plan.route == "staged" and 48 * 1024 < plan.smem <= MAX_SMEM
-    # S is grid dimension y
-    assert adc_slots_plan(65535, 32, 24, 256).grid[1] == 65535
+    # S is grid dimension x: the scatter-gather call of 8192 queries over
+    # 10 partitions (81,920 branch rows) is planned, each output once; the
+    # engine's shapes keep their one tile a slot
+    plan = adc_slots_plan(81920, 256, 24, 256)
+    assert plan.grid == (81920, 1) and (_slots_coverage(plan, 81920, 256)
+                                        == 1).all()
+    assert adc_slots_plan(81920, 1, 24, 256).grid == (81920, 1)
+    assert adc_slots_plan(10240, 256, 24, 256).grid == (10240, 1)
+    assert adc_slots_plan(256, 256, 24, 256).grid == (256, 1)
+    # C's tiles are grid dimension y
+    assert adc_slots_plan(1, 65535 * 256, 24, 256).grid == (1, 65535)
     with pytest.raises(ValueError, match="tiling"):
-        adc_slots_plan(65536, 32, 24, 256)
+        adc_slots_plan(1, 65535 * 256 + 1, 24, 256)
 
 
 def test_adc_slots_plan_follows_the_cards_sm_count():

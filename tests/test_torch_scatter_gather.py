@@ -7,6 +7,9 @@ reference's; and the paper's comparison (``tests/test_baton.py``): the
 baseline's reads grow with P, and the baton engine does under 0.6 of its
 work."""
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +20,7 @@ from repro.api.engine import (
 from repro.core import ref as rref, scatter_gather as rsg
 from repro_torch.api.engine import BatonEngine, ScatterGatherEngine
 from repro_torch.core import baton as tb, scatter_gather as tsg
+from repro_torch.device import SyncMeter
 
 KW = dict(r=20, l_build=40, pq_m=16, pq_k=128, seed=0)
 SEARCH = dict(L=32, W=8, k=10, pool=128)
@@ -40,13 +44,18 @@ def carried(ref_sg):
     return eng
 
 
-def test_carried_index_matches_reference(carried, ref_run, dataset):
+@pytest.fixture(scope="module")
+def plain_run(carried, dataset):
+    """The port's run on the plain route (gather, lexsort, einsum)."""
+    return tsg.run_simulated(carried.index, dataset.queries, **SEARCH)
+
+
+def test_carried_index_matches_reference(plain_run, ref_run):
     """Ids 320/320, every counter and ``part_*`` array equal, the stats
     keys in the reference's order; distances rtol 1e-5 (the exact L2 over
     d sums in another order than XLA's)."""
     ids_r, d_r, st_r = ref_run
-    ids, dists, st = tsg.run_simulated(carried.index, dataset.queries,
-                                       **SEARCH)
+    ids, dists, st = plain_run
     print(f"ids equal {int((ids == ids_r).sum())}/{ids.size}, max rel dist "
           f"err {float(np.max(np.abs(dists - d_r) / np.abs(d_r))):.3g}")
     np.testing.assert_array_equal(ids, ids_r)
@@ -61,10 +70,10 @@ def test_carried_index_matches_reference(carried, ref_run, dataset):
 @pytest.mark.parametrize("adc_impl,merge_impl,lut_impl", [
     ("mxu_tiled", "lexsort", "einsum"), ("gather", "bitonic", "einsum"),
     ("mxu_tiled", "bitonic", "einsum")])
-def test_kernel_routes_equal_plain(carried, dataset, adc_impl, merge_impl,
-                                   lut_impl):
+def test_kernel_routes_equal_plain(carried, dataset, plain_run, adc_impl,
+                                   merge_impl, lut_impl):
     """Every scoring route gives the plain route's answer bit for bit."""
-    want = tsg.run_simulated(carried.index, dataset.queries, **SEARCH)
+    want = plain_run
     got = tsg.run_simulated(carried.index, dataset.queries, **SEARCH,
                             adc_impl=adc_impl, merge_impl=merge_impl,
                             lut_impl=lut_impl)
@@ -82,6 +91,85 @@ def test_lut_kernel_route_against_einsum(carried, dataset, ref_run):
                                   lut_impl="kernel")
     print(f"{int((ids != ref_run[0]).sum())} of {ids.size} ids differ")
     assert (ids == ref_run[0]).mean() >= 0.9
+
+
+KERNEL_ROUTE = dict(SEARCH, adc_impl="mxu_tiled", merge_impl="bitonic",
+                    lut_impl="kernel")
+
+
+@pytest.fixture(scope="module")
+def traced_run(carried, dataset):
+    """The kernel routes' plain versions, with no meter and again under a
+    meter with spans on."""
+    bare = tsg.run_simulated(carried.index, dataset.queries, **KERNEL_ROUTE)
+    meter = SyncMeter(spans=True)
+    got = tsg.run_simulated(carried.index, dataset.queries, **KERNEL_ROUTE,
+                            meter=meter)
+    return bare, got, meter
+
+
+def test_spans_and_records_change_nothing(traced_run):
+    """Spans on give the answers and counters of a run with no meter, bit
+    for bit, and the same host syncs: the call's ``lut``, ``seed``,
+    ``hops`` (a ``hop`` a lock-step hop) and ``gather`` spans."""
+    (ids, dists, st), (ids2, dists2, st2), meter = traced_run
+    np.testing.assert_array_equal(ids2, ids)
+    np.testing.assert_array_equal(dists2, dists)
+    assert list(st2) == list(st)
+    for key in st:
+        if key != "host_sync_s":
+            np.testing.assert_array_equal(st2[key], st[key], key)
+    spans = meter.spans
+    assert spans[0].name == "call" and spans[0].parent == -1
+    assert all(sp.t1_ns >= sp.t0_ns > 0 for sp in spans)
+    children = [sp.name for sp in spans if sp.parent == 0]
+    assert children == ["lut", "seed", "hops", "gather"]
+    hops_at = [sp.name for sp in spans].index("hops")
+    hop_spans = [sp for sp in spans if sp.name == "hop"]
+    assert all(sp.parent == hops_at for sp in hop_spans)
+    assert len(hop_spans) == len(meter.loops[0].steps)
+    assert {sp.call for sp in spans} == {meter.call_id}
+
+
+def test_records_count_the_lock_step_hops(traced_run, carried, dataset):
+    """One ``Step`` a lock-step hop: as many as the largest branch hop
+    count (``sg.lockstep_hops_per_call``), their live rows summing to the
+    summed branch hops (``sg.live_branch_share``), a partition's to its
+    branches'; every branch finishes once; one sync a hop and the last
+    count."""
+    _, (_, _, st), meter = traced_run
+    (loop,) = meter.loops
+    branch_hops = st["part_hops"]                              # (B, P)
+    p = carried.index.p
+    assert loop.batch == branch_hops.size == p * len(dataset.queries)
+    assert len(loop.steps) == branch_hops.max()
+    active = np.stack([s.active for s in loop.steps])           # (hops, P)
+    assert active.shape[1] == p
+    np.testing.assert_array_equal(active.sum(0), branch_hops.sum(0))
+    assert sum(s.delivered for s in loop.steps) == branch_hops.size
+    assert {s.local_steps for s in loop.steps} == {1}
+    assert st["host_syncs"] == len(loop.steps) + 1
+
+
+def test_answers_hold_against_the_benchmarks_reference(traced_run, dataset):
+    """The kernel route's answers against ``bench/references/exact_l2.py``
+    (plain torch, loaded by path as the benchmark's harness loads it):
+    ids unique and valid, distances ascending and within 1e-4 of the
+    reference's float32 distance of the same id."""
+    spec = importlib.util.spec_from_file_location(
+        "exact_l2", Path(__file__).resolve().parents[1] / "bench"
+        / "references" / "exact_l2.py")
+    ref = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ref)
+    _, (ids, dists, _), _ = traced_run
+    n = len(dataset.vectors)
+    assert ((ids >= 0) & (ids < n)).all()
+    assert all(len(set(row)) == len(row) for row in ids)
+    assert (np.diff(dists, axis=1) >= 0).all()
+    want = ref.distances(ref.as_tensor(dataset.vectors, "cpu"),
+                         ref.as_tensor(dataset.queries, "cpu"),
+                         torch.as_tensor(ids)).numpy()
+    assert (np.abs(dists - want) <= 1e-4 * want).all()
 
 
 def test_dense_adc_route_is_refused(carried, dataset):
