@@ -34,7 +34,12 @@ Phases (any failure exits non-zero; nothing is swallowed):
    L 768 + 256, pool 256 + 8), the beam merges of the
    quickstart (L 48 + 192), the distributed demo (L 40 + 160) and the RAG
    demo (L 32 + 64), rows that pad to 32, 64, 1024 and 4096: every route
-   and register count of ``topk_plan``, printed), the dense
+   and register count of ``topk_plan``, printed; list a in order as the
+   merges hand it over, but the duplicate-heavy rows, which the network
+   takes; no row may fall back from the rank route; then the SG cell's
+   and the baton step's beam and pool merges timed on both routes, the
+   network on the same row as one list, the rank route by ``rank_plan``),
+   the dense
    ADC at the engine's (B, Q, N) = (8, 32, 8192), the tier's (1, g, 256 g)
    for g = 8, 4, 2, 1, a ragged shape and (1, 16, 8192), (1, 32, 8192)
    (every row tile of ``adc_plan``, printed), and the LUT build at Q =
@@ -55,7 +60,8 @@ Phases (any failure exits non-zero; nothing is swallowed):
    L = 64, W = 8, pool = 256, slots = 32 on the kernel route
    (``adc_impl="mxu_tiled"``, ``merge_impl="bitonic"``) after one warm-up
    batch, with the kernels' launch counts reset just before and read just
-   after; recall@10 against the card's brute-force ground truth;
+   after; recall@10 against the card's brute-force ground truth; the
+   merges must take the top-k's rank route with no row falling back;
 6. re-run the first batch on the plain route (``gather``/``lexsort``) and
    require ids, distances and all five counters bitwise equal (the plain
    route launches no kernel but the candidate filter, whose route follows
@@ -89,7 +95,9 @@ Phases (any failure exits non-zero; nothing is swallowed):
     the kernel route (``mxu_tiled``, ``bitonic``) with the slot-ADC and
     top-k launches counted, then on the plain route, the two bitwise equal
     (ids, dists, summed counters, every ``part_*`` array), recall@10 >=
-    0.5; the exact oracle (``ExactEngine``), recall@10 >= 0.999.  For each
+    0.5; a call of the SG cell's size (8192 queries at L 768, P * 8192
+    branch rows a hop) whose merges, like batch 1's, take the top-k's rank
+    route with no row falling back; the exact oracle (``ExactEngine``), recall@10 >= 0.999.  For each
     engine a ``[compare]`` line prints recall@10, the mean counters,
     ``modeled_qps``, ``modeled_latency_s``, ``bottleneck`` and the card's
     wall seconds and QPS; then the SG/baton ratios of reads and
@@ -292,6 +300,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 SPIN_CYCLES = 5_000_000       # ~2.5 ms at the H100's boost clock
+SG_CELL_QUERIES = 8192        # deep1m-sg.batch8k's call
 STAT_KEYS = ("hops", "inter_hops", "dist_comps", "reads", "lut_builds")
 # phase 20's copy task draws its tokens from the first COPY_VOCAB ids, the
 # vocabulary of the qwen2 smoke config that the reference's copy test
@@ -335,6 +344,9 @@ EARLIER_MS = {
     ("pq_adc_slots", "slice"): (0.0109, "commit 35fec6c"),
     ("bitonic_topk", "beam"): (0.0129, "commit b388c20"),
     ("bitonic_topk", "pool"): (0.0129, "commit b388c20"),
+    # the network on random a (PERF.md); a in order on the rank route now
+    ("bitonic_topk", "SG cell beam"): (3.5763, "commit 2df27d7"),
+    ("bitonic_topk", "SG cell pool"): (1.1062, "commit 2df27d7"),
     ("pq_adc", "engine"): (0.0888, "commit b388c20"),
     ("pq_adc", "tier"): (0.0610, "commit b388c20"),
     ("pq_adc", "ragged"): (0.0352, "commit b388c20"),
@@ -522,8 +534,27 @@ def check_adc(torch, gen, dev) -> dict:
     return rows
 
 
+def ordered_merge(torch, gen, dev, b, ca, cb):
+    """A merge's lists as the search hands them over: a in (dist, id)
+    order, the previous merge's output, its last eighth padding (inf, -2);
+    b unordered (the scored candidates)."""
+    from repro_torch.kernels.topk.ops import topk_ref
+
+    vals = torch.rand((b, ca + cb), generator=gen, device=dev)
+    ids = torch.randperm(b * (ca + cb), generator=gen, device=dev).reshape(
+        b, ca + cb).to(torch.int32)
+    vals[:, ca - ca // 8:ca] = float("inf")
+    ids[:, ca - ca // 8:ca] = -2
+    va, ia = topk_ref(vals[:, :ca], ids[:, :ca], ca)
+    return (va.contiguous(), ia.contiguous(), vals[:, ca:].contiguous(),
+            ids[:, ca:].contiguous())
+
+
 def check_topk(torch, gen, dev) -> dict:
-    from repro_torch.kernels.topk.ops import merge_topk, topk_plan, topk_ref
+    from repro_torch.kernels.topk import ops
+    from repro_torch.kernels.topk.ops import (
+        bitonic_topk, fallback_rows, merge_topk, rank_plan, topk_plan,
+        topk_ref)
 
     rows = {}
     cases = (("beam", 256, 64, 256, 64, False),
@@ -543,33 +574,33 @@ def check_topk(torch, gen, dev) -> dict:
              ("RAG beam", 64, 32, 64, 32, False),           # pads to 128
              ("RAG pool", 64, 128, 4, 128, False))          # pads to 256
     for tag, b, ca, cb, k, dups in cases:
-        if dups:
+        if dups:      # at random, both lists (the network: cb > 256)
             da = torch.randint(0, 4, (b, ca), generator=gen, device=dev).float()
             db = torch.randint(0, 4, (b, cb), generator=gen, device=dev).float()
+            ids = torch.randperm(b * (ca + cb), generator=gen,
+                                 device=dev).reshape(b, ca + cb).to(torch.int32)
+            ia, ib = ids[:, :ca].contiguous(), ids[:, ca:].contiguous()
         else:
-            da = torch.rand((b, ca), generator=gen, device=dev)
-            db = torch.rand((b, cb), generator=gen, device=dev)
-            # the merges' padding: repeated (INF, -2) pairs
-            da[:, ca - ca // 8:] = float("inf")
-        perm = torch.randperm(b * (ca + cb), generator=gen, device=dev)
-        ids = perm.reshape(b, ca + cb).to(torch.int32)
-        ia, ib = ids[:, :ca].contiguous(), ids[:, ca:].contiguous()
-        if not dups:
-            ia[:, ca - ca // 8:] = -2
+            da, ia, db, ib = ordered_merge(torch, gen, dev, b, ca, cb)
+        fell = fallback_rows()
         oi, ov = merge_topk(ia, da, ib, db, k)
         cat_v, cat_i = torch.cat([da, db], 1), torch.cat([ia, ib], 1)
         rv, ri = topk_ref(cat_v, cat_i, k)
         torch.cuda.synchronize()
         if not (torch.equal(ov, rv) and torch.equal(oi, ri)):
             raise AssertionError(f"top-k kernel != plain at {tag}")
-        cpad = 1 << (ca + cb - 1).bit_length()
-        lg = cpad.bit_length() - 1
-        plan = topk_plan(cpad)
+        if fallback_rows() != fell:
+            raise AssertionError(f"{tag}: {fallback_rows() - fell} rows "
+                                 f"fell back to the network")
+        plan = topk_plan(ca, cb, k)
+        lg = plan.n.bit_length() - 1
         rows[tag] = dict(
-            plan=f"{plan.route} route, pairs a thread {plan.per_lane}, "
-                 f"{plan.threads} threads a row",
+            plan=f"{plan.route} route, {plan.threads} threads a row, "
+                 f"{plan.per_lane} pairs a thread"
+                 + (f", b {plan.sort_lane} a thread; 0 rows fell back"
+                    if plan.route == "rank" else ""),
             earlier_ms=EARLIER_MS.get(("bitonic_topk", tag)),
-            shape=(b, ca + cb, cpad, k), max_abs_err=float(
+            shape=(b, ca + cb, plan.n, k), max_abs_err=float(
                 (ov - rv).nan_to_num(posinf=0.0).abs().max()),
             ms=time_ms(lambda: merge_topk(ia, da, ib, db, k), torch),
             **kernel_us(lambda: merge_topk(ia, da, ib, db, k),
@@ -580,7 +611,7 @@ def check_topk(torch, gen, dev) -> dict:
             library_ms=time_ms(lambda: torch.topk(cat_v, k, dim=1,
                                                   largest=False), torch),
             bytes=b * (ca + cb) * 8 + b * k * 8,
-            ops=b * (cpad // 2) * lg * (lg + 1) // 2,
+            ops=b * (plan.n // 2) * lg * (lg + 1) // 2,
         )
         log(f"[kernels] bitonic_topk {tag} B,C,Cpad,k={rows[tag]['shape']} "
             f"({rows[tag]['plan']}): bitwise equal; kernel "
@@ -588,6 +619,58 @@ def check_topk(torch, gen, dev) -> dict:
             f"{earlier(rows[tag])}, plain "
             f"{rows[tag]['plain_ms']:.4f} ms, torch.topk "
             f"{rows[tag]['library_ms']:.4f} ms")
+    # the cells' merges (the baton engine's step: 10 * 1024 slots), each on
+    # both routes: the network on the row as one list (which it takes), the
+    # rank route by its own plan
+    for tag, b, ca, cb, k in (("SG cell beam, both routes", 81920, 768, 256, 768),
+                              ("SG cell pool, both routes", 81920, 256, 8, 256),
+                              ("baton beam, both routes", 10240, 64, 256, 64),
+                              ("baton pool, both routes", 10240, 256, 8, 256)):
+        va, ia, vb, ib = ordered_merge(torch, gen, dev, b, ca, cb)
+        cat_v, cat_i = torch.cat([va, vb], 1), torch.cat([ia, ib], 1)
+        rv, ri = topk_ref(cat_v, cat_i, k)
+        plan, rank = topk_plan(ca, cb, k), rank_plan(ca, cb, k)
+        fell = fallback_rows()
+        qv, qi = ops._launch(va, ia, vb, ib, k, rank)
+        nv, ni = bitonic_topk(cat_v, cat_i, k)
+        torch.cuda.synchronize()
+        if not (torch.equal(qv, rv) and torch.equal(qi, ri)
+                and torch.equal(nv, rv) and torch.equal(ni, ri)):
+            raise AssertionError(f"top-k kernel != plain at {tag}")
+        if fallback_rows() != fell:
+            raise AssertionError(f"{tag}: {fallback_rows() - fell} rows with "
+                                 f"a in order fell back")
+        times = {"rank": kernel_us(lambda: ops._launch(va, ia, vb, ib, k,
+                                                       rank),
+                                   "topk_kernel", torch),
+                 "network": kernel_us(lambda: bitonic_topk(cat_v, cat_i, k),
+                                      "topk_kernel", torch)}
+        n_bytes = b * (ca + cb) * 8 + b * k * 8
+        rows[tag] = dict(
+            plan=f"topk_plan: {plan.route} route; rank route "
+                 f"{rank.threads} threads a row, b {rank.sort_lane} a "
+                 f"thread, 0 rows fell back",
+            earlier_ms=EARLIER_MS.get(("bitonic_topk", tag)),
+            shape=(b, ca + cb, plan.n, k), max_abs_err=0.0,
+            ms=time_ms(lambda: merge_topk(ia, va, ib, vb, k), torch),
+            **times["rank" if plan.route == "rank" else "network"],
+            rank_alone_us=times["rank"]["alone_us"],
+            network_alone_us=times["network"]["alone_us"],
+            plain_ms=time_ms(lambda: topk_ref(torch.cat([va, vb], 1),
+                                              torch.cat([ia, ib], 1), k),
+                             torch),
+            library_ms=time_ms(lambda: torch.topk(cat_v, k, dim=1,
+                                                  largest=False), torch),
+            bytes=n_bytes, ops=0)
+        log(f"[kernels] bitonic_topk {tag} B,C,Cpad,k={rows[tag]['shape']} "
+            f"({rows[tag]['plan']}): bitwise equal on both routes; kernel "
+            f"{rows[tag]['ms']:.4f} ms ({alone(rows[tag])})"
+            f"{earlier(rows[tag])}; rank route "
+            f"{times['rank']['alone_us']:.2f} us alone "
+            f"({times['rank']['alone_by']}), network "
+            f"{times['network']['alone_us']:.2f} us alone "
+            f"({times['network']['alone_by']}); bytes bound "
+            f"{n_bytes / HBM_BYTES_PER_S * 1e6:.2f} us")
     return rows
 
 
@@ -758,6 +841,32 @@ def plain_route_launches(counts: dict, where: str) -> None:
         raise AssertionError(f"{where} did not launch the candidate filter")
 
 
+def launches_by_route() -> dict:
+    """The top-k kernel's launches by route since the last reset, and the
+    rows the rank route sent to the network since the last
+    ``reset_fallback_rows`` (read from the card)."""
+    from repro_torch.kernels.topk.ops import bitonic_topk, fallback_rows
+
+    return {"rank": bitonic_topk.rank_launches,
+            "network": bitonic_topk.network_launches,
+            "fallback_rows": fallback_rows()}
+
+
+def reset_fallback_rows() -> None:
+    from repro_torch.kernels.topk import ops
+
+    ops.reset_fallback_rows()
+
+
+def need_no_fallback(routes: dict, where: str) -> None:
+    """Raise unless the merges took the rank route and no row of theirs
+    fell back: every merge hands the kernel an a in order."""
+    if routes["rank"] == 0 or routes["fallback_rows"]:
+        raise AssertionError(f"{where}: top-k launches by route {routes}; "
+                             f"the merges must take the rank route with no "
+                             f"row falling back")
+
+
 def same_answers(a, b) -> bool:
     """Bitwise equal ids, dists and five counters of two engine results."""
     return (a.ids.tobytes() == b.ids.tobytes()
@@ -889,7 +998,8 @@ def compare_phase(torch, eng, ds, spec, kernel_sp, batches, gt1, kern,
     from repro_torch import kernels
     from repro_torch.api.deployment import Deployment
     from repro_torch.api.engine import ExactEngine, ScatterGatherEngine
-    from repro_torch.configs.batann_serve import DataSpec, ServeConfig
+    from repro_torch.configs.batann_serve import (
+        DataSpec, SearchParams, ServeConfig)
 
     dev = eng.device
     cfg = ServeConfig(name="batann-serve", data=DataSpec(n=n, n_queries=n_q),
@@ -916,8 +1026,24 @@ def compare_phase(torch, eng, ds, spec, kernel_sp, batches, gt1, kern,
     warm_sg = sg.search(batches[0][:256], kernel_sp)
     log(f"[sg] warm-up 256 queries: {warm_sg.wall_s:.2f} s")
     kernels.reset_launch_counts()
+    reset_fallback_rows()
     rep = Deployment.from_parts(sg_cfg, sg, ds).run(batches[1], gt1)
     sg_launches = kernels.launch_counts()
+    need_no_fallback(launches_by_route(), "the scatter-gather batch")
+    # a call of the SG cell's size: 8192 queries at its L 768 (P * 8192
+    # branch rows a hop, each merge on the rank route)
+    cell_sp = SearchParams(L=768, W=8, pool=256, adc_impl="mxu_tiled",
+                           merge_impl="bitonic", lut_impl="kernel")
+    cell_q = np.tile(ds.queries, (-(-SG_CELL_QUERIES // len(ds.queries)),
+                                  1))[:SG_CELL_QUERIES]
+    kernels.reset_launch_counts()
+    cell = sg.search(cell_q, cell_sp)
+    routes = launches_by_route()
+    need_no_fallback(routes, "the scatter-gather call at the cell's size")
+    log(f"[sg cell] {SG_CELL_QUERIES} queries at L 768 ({spec.p} * "
+        f"{SG_CELL_QUERIES} branch rows a hop): wall {cell.wall_s:.3f} s, "
+        f"QPS {SG_CELL_QUERIES / cell.wall_s:.1f}; top-k launches by route "
+        f"{routes}")
     reports["scatter_gather"] = rep
     plain_rep = Deployment.from_parts(
         sg_cfg.with_updates(search={"adc_impl": "gather",
@@ -2789,6 +2915,7 @@ def main(argv=None) -> int:
     warm = eng.search(batches[0], kernel_sp)
     log(f"[search] warm-up batch: {warm.wall_s:.2f} s")
     kernels.reset_launch_counts()
+    reset_fallback_rows()
     results, recalls = [], []
     for i, qb in enumerate(batches[1:], start=1):
         before = kernels.launch_counts()
@@ -2815,6 +2942,7 @@ def main(argv=None) -> int:
         if launches[name] == 0:
             raise AssertionError(f"kernel {name} was never launched on the "
                                  f"engine's path")
+    need_no_fallback(launches_by_route(), "the engine's batches")
     total_q = sum(len(b) for b in batches[1:])
     total_s = sum(r.wall_s for r in results)
     log(f"[search] {total_q} queries in {total_s:.3f} s: QPS "

@@ -25,5 +25,8 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
+    """Zero every wrapper's launch counts (``launches``, and the top-k
+    wrapper's counts by route)."""
     for fn in _wrappers().values():
-        fn.launches = 0
+        for attr in [a for a in vars(fn) if a.endswith("launches")]:
+            setattr(fn, attr, 0)

@@ -33,7 +33,7 @@ _VP, _I = ctypes.c_void_p, ctypes.c_int
 SOURCES = {
     "topk": ("topk/topk.cu", {
         "bitonic_topk_launch": [_VP, _VP, _I, _VP, _VP, _I, _I, _I, _I,
-                                _I, _VP, _VP, _VP],
+                                _I, _I, _VP, _VP, _VP, _VP],
     }),
     "pq_adc_slots": ("pq_adc/adc_slots.cu", {
         "adc_slots_launch": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP],
@@ -124,10 +124,11 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def count_launch(fn) -> None:
-    """Add one to ``fn.launches`` (a wrapper's launch count)."""
+def count_launch(fn, attr: str = "launches") -> None:
+    """Add one to ``fn.launches`` (a wrapper's launch count), or to
+    another of its counts."""
     with _count_lock:
-        fn.launches += 1
+        setattr(fn, attr, getattr(fn, attr) + 1)
 
 
 def check_launch(name: str, err: int) -> None:

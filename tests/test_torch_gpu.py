@@ -98,6 +98,82 @@ def test_topk_every_route_bitwise(cuda, n):
         assert torch.equal(mv, rv) and torch.equal(mi, ri), k
 
 
+def _ordered_merge(g, cuda, b, ca, cb, pad_a, pad_b):
+    """A merge's lists as the search hands them over: a in (dist, id)
+    order with ``pad_a`` padding pairs at its tail, b unordered ending in
+    ``pad_b``; padding (inf, -1) and (inf, -2)."""
+    from repro_torch.kernels.topk.ops import topk_ref
+
+    vals = torch.rand((b, ca + cb), generator=g, device=cuda)
+    ids = torch.randperm(b * (ca + cb), generator=g, device=cuda).reshape(
+        b, ca + cb).to(torch.int32)
+    vals[:, ca - pad_a:ca] = float("inf")
+    vals[:, ca + cb - pad_b:] = float("inf")
+    pad = -1 - torch.randint(0, 2, (b, ca + cb), generator=g, device=cuda,
+                             dtype=torch.int32)
+    ids = torch.where(vals == float("inf"), pad, ids)
+    va, ia = topk_ref(vals[:, :ca], ids[:, :ca], ca)
+    return (va.contiguous(), ia.contiguous(), vals[:, ca:].contiguous(),
+            ids[:, ca:].contiguous())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,ca,cb,k,pad_a,pad_b,route", [
+    (81920, 768, 256, 768, 100, 32, "rank"),   # the SG cell's beam merge
+    (512, 768, 256, 768, 700, 256, "rank"),    # first hops, finished rows
+    (4096, 256, 8, 256, 30, 2, "rank"),        # the pool merge (SG, baton)
+    (1, 256, 8, 256, 0, 0, "rank"),            # the tier's one state
+    (10240, 64, 256, 64, 5, 60, "smem"),       # the baton beam: network
+    (512, 600, 400, 100, 0, 0, "smem"),        # b past 256: the network
+])
+def test_topk_rank_route_bitwise(cuda, b, ca, cb, k, pad_a, pad_b, route):
+    """The route ``topk_plan`` picks at the cells' shapes gives
+    ``topk_ref``'s pairs bitwise on ordered a (the SG beam once at its
+    full 81,920 rows), with one launch counted on that route and no row
+    sent to the network."""
+    from repro_torch.kernels.topk.ops import (
+        bitonic_topk, fallback_rows, merge_topk, topk_plan, topk_ref)
+
+    assert topk_plan(ca, cb, k).route == route
+    g = torch.Generator(device=cuda).manual_seed(b + ca + pad_a)
+    va, ia, vb, ib = _ordered_merge(g, cuda, b, ca, cb, pad_a, pad_b)
+    rv, ri = topk_ref(torch.cat([va, vb], 1), torch.cat([ia, ib], 1), k)
+    fell, rank, net = (fallback_rows(), bitonic_topk.rank_launches,
+                       bitonic_topk.network_launches)
+    mi, mv = merge_topk(ia, va, ib, vb, k)
+    assert torch.equal(mv, rv) and torch.equal(mi, ri)
+    assert fallback_rows() == fell
+    assert (bitonic_topk.rank_launches - rank,
+            bitonic_topk.network_launches - net) == (
+        (1, 0) if route == "rank" else (0, 1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ca,cb,k", [(768, 256, 768), (256, 8, 256),
+                                     (300, 40, 90)])
+def test_topk_rank_route_counts_rows_it_sends_to_the_network(cuda, ca, cb,
+                                                            k):
+    """Rows whose a is out of order, mixed into one launch with ordered
+    rows, come out bitwise too: they take the network, and the fallback
+    count grows by exactly their number."""
+    from repro_torch.kernels.topk.ops import (
+        bitonic_topk, fallback_rows, merge_topk, topk_ref)
+
+    b = 300
+    g = torch.Generator(device=cuda).manual_seed(ca + k)
+    va, ia, vb, ib = _ordered_merge(g, cuda, b, ca, cb, 7, 3)
+    bad = torch.randperm(b, generator=g, device=cuda)[:37]
+    va[bad, :2] = va[bad, :2].flip(1)     # the two smallest pairs swapped
+    ia[bad, :2] = ia[bad, :2].flip(1)
+    va[bad[:5]] = torch.rand((5, ca), generator=g, device=cuda)  # random a
+    rv, ri = topk_ref(torch.cat([va, vb], 1), torch.cat([ia, ib], 1), k)
+    fell, rank = fallback_rows(), bitonic_topk.rank_launches
+    mi, mv = merge_topk(ia, va, ib, vb, k)
+    assert torch.equal(mv, rv) and torch.equal(mi, ri)
+    assert fallback_rows() - fell == 37
+    assert bitonic_topk.rank_launches == rank + 1
+
+
 @pytest.mark.gpu
 def test_kernel_wrappers_raise_on_what_they_do_not_take(cuda):
     from repro_torch.kernels.pq_adc.ops import pq_adc_slots_tiled

@@ -21,7 +21,7 @@ from repro_torch.kernels.pq_adc.ops import (
     MAX_SMEM, MAX_THREADS, SMS, AdcPlan, adc_plan, adc_smem, pq_adc,
     pq_adc_ref)
 from repro_torch.kernels.topk.ops import (
-    MAX_ROW, bitonic_topk, merge_topk, topk_plan, topk_ref)
+    MAX_ROW, bitonic_topk, merge_topk, rank_plan, topk_plan, topk_ref)
 
 
 def _coverage(plan: AdcPlan, b: int, q: int, n: int):
@@ -133,10 +133,15 @@ def test_topk_plan_route_by_padded_length(cpad):
     assert (plan.route == "warp") == (plan.threads == 32)
 
 
-@pytest.mark.parametrize("cpad", [0, 3, 768, 2 * MAX_ROW])
-def test_topk_plan_refuses_what_the_kernel_does_not_take(cpad):
-    with pytest.raises(ValueError, match="cpad"):
-        topk_plan(cpad)
+@pytest.mark.parametrize("ca,cb,k", [
+    (0, 0, None), (MAX_ROW, 1, None), (2 * MAX_ROW, 0, None), (-1, 8, None),
+    (768, 256, 0), (256, 8, 265),
+])
+def test_topk_plan_refuses_what_the_kernel_does_not_take(ca, cb, k):
+    """Neither route takes an empty row, one past ``MAX_ROW`` pairs, a
+    negative list or k outside 1 .. ca + cb."""
+    with pytest.raises(ValueError, match="row of|k="):
+        topk_plan(ca, cb, k)
 
 
 @pytest.mark.parametrize("cpad,per_lane,threads", [
@@ -229,6 +234,181 @@ def test_topk_network_model_equals_plain(c, k, dup, seed):
                       torch.tensor(idxs, dtype=torch.int32)[None], k)
     np.testing.assert_array_equal(got_v, rv[0].numpy())
     np.testing.assert_array_equal(got_x, ri[0].numpy())
+
+
+def _less(p, q):
+    """``pair_less`` on (value, index) tuples."""
+    return p[0] < q[0] or (p[0] == q[0] and p[1] < q[1])
+
+
+def _rank_topk(va, ia, vb, ib, k, threads):
+    """``topk.cu``'s rank route on one row in plain Python: the vote on
+    a's order (out of order: None, the row falls back to the network);
+    where k <= ca, b's pairs not below a[k - 1] dropped; the rest sorted,
+    then each thread's merge path: the diagonal's binary search for its
+    first output, ``per`` outputs merged from there, a first on equal
+    pairs."""
+    a = list(zip(va.tolist(), ia.tolist()))
+    if any(_less(a[i], a[i - 1]) for i in range(1, len(a))):
+        return None
+    ca = len(a)
+    order = np.lexsort((ib, vb))
+    b = [p for p in zip(vb[order].tolist(), ib[order].tolist())
+         if k > ca or _less(p, a[k - 1])]
+    cb = len(b)
+    per = -(-k // threads)
+    out = [None] * k
+    for d0 in range(0, k, per):
+        lo, hi = max(0, d0 - cb), min(d0, ca)
+        while lo < hi:
+            mid = (lo + hi) >> 1
+            if _less(b[d0 - 1 - mid], a[mid]):
+                hi = mid
+            else:
+                lo = mid + 1
+        i, j = lo, d0 - lo
+        for d in range(d0, min(d0 + per, k)):
+            if i >= ca or (j < cb and _less(b[j], a[i])):
+                out[d], j = b[j], j + 1
+            else:
+                out[d], i = a[i], i + 1
+    return (np.array([p[0] for p in out], np.float32),
+            np.array([p[1] for p in out], np.int64))
+
+
+def _merge_rows(rng, ca, cb, pad_a, pad_b, dup=False):
+    """One merge's lists as the search hands them over: a in (dist, id)
+    order (the previous merge's output, ``pad_a`` padding pairs at its
+    tail), b unordered (scored candidates) ending in ``pad_b`` padding
+    pairs; padding is (inf, -1) and (inf, -2), the pool's and the packed
+    beam's."""
+    ids = rng.permutation(4 * (ca + cb)).astype(np.int64)
+    if dup:
+        vals = rng.integers(0, 3, size=ca + cb).astype(np.float32)
+    else:
+        vals = rng.random(ca + cb).astype(np.float32)
+    va, ia, vb, ib = vals[:ca], ids[:ca], vals[ca:], ids[ca:ca + cb]
+    va[ca - pad_a:], vb[cb - pad_b:] = np.inf, np.inf
+    ia[ca - pad_a:] = rng.choice([-1, -2], size=pad_a)
+    ib[cb - pad_b:] = rng.choice([-1, -2], size=pad_b)
+    order = np.lexsort((ia, va))
+    return va[order], ia[order], vb, ib
+
+
+@pytest.mark.parametrize("ca,cb,k,pad_a,pad_b,dup", [
+    (768, 256, 768, 0, 0, False),    # the SG cell's beam merge
+    (768, 256, 768, 500, 64, False),  # its first hops: beam mostly padding
+    (256, 8, 256, 40, 3, False),     # the pool merge (SG and baton)
+    (64, 256, 64, 10, 100, False),   # the baton beam (k < cb)
+    (64, 256, 300, 10, 100, False),  # k > ca: all of b kept
+    (300, 40, 340, 0, 0, True),      # k = ca + cb, duplicate-heavy values
+    (300, 40, 90, 60, 10, True),     # k < ca
+    (200, 64, 200, 200, 64, False),  # both lists all padding
+    (256, 8, 256, 0, 8, False),      # b all padding (a finished branch)
+])
+def test_topk_rank_model_equals_plain(ca, cb, k, pad_a, pad_b, dup):
+    """The rank route (a in order, b's pairs that can be kept sorted,
+    ranks by binary search, a first on equal pairs) gives the plain
+    version's pairs bitwise at the cells' shapes, repeated padding pairs
+    in both lists included, at the plan's threads (and a quarter of
+    them, for a longer merge a thread)."""
+    rng = np.random.default_rng(ca * cb + k + pad_a)
+    threads = rank_plan(ca, cb, k).threads
+    for _ in range(2):
+        va, ia, vb, ib = _merge_rows(rng, ca, cb, pad_a, pad_b, dup)
+        rv, ri = topk_ref(torch.tensor(np.concatenate([va, vb]))[None],
+                          torch.tensor(np.concatenate([ia, ib]),
+                                       dtype=torch.int32)[None], k)
+        for t in (threads, max(threads // 4, 1)):
+            got_v, got_x = _rank_topk(va, ia, vb, ib, k, t)
+            np.testing.assert_array_equal(got_v, rv[0].numpy())
+            np.testing.assert_array_equal(got_x, ri[0].numpy())
+
+
+def _smem_network(vals, idxs, n):
+    """``topk.cu``'s rank-route fallback in NumPy: the row padded to n
+    with (inf, INT32_MAX) and sorted by the all-ascending bitonic network,
+    stage by stage (the mirror stage, then the half-cleaners)."""
+    v = np.full(n, np.inf, np.float32)
+    x = np.full(n, 2**31 - 1, np.int64)
+    v[:len(vals)], x[:len(vals)] = vals, idxs
+    p = np.arange(n // 2)
+    kk = 2
+    while kk <= n:
+        jj = kk >> 1
+        while jj >= 1:
+            lo = ((p & ~(jj - 1)) << 1) | (p & (jj - 1))
+            hi = lo ^ (kk - 1) if jj == kk >> 1 else lo + jj
+            swap = (v[hi] < v[lo]) | ((v[hi] == v[lo]) & (x[hi] < x[lo]))
+            v[lo], v[hi] = np.where(swap, v[hi], v[lo]), np.where(swap, v[lo], v[hi])
+            x[lo], x[hi] = np.where(swap, x[hi], x[lo]), np.where(swap, x[lo], x[hi])
+            jj >>= 1
+        kk <<= 1
+    return v, x
+
+
+def test_topk_rank_model_sends_unordered_rows_to_the_network():
+    """A row whose a is out of order (two adjacent pairs swapped) is
+    refused by the vote, and the fallback network, the whole row sorted,
+    gives the plain version's pairs."""
+    rng = np.random.default_rng(5)
+    ca, cb, k = 256, 8, 256
+    va, ia, vb, ib = _merge_rows(rng, ca, cb, 20, 2)
+    va[[10, 11]], ia[[10, 11]] = va[[11, 10]], ia[[11, 10]]
+    plan = topk_plan(ca, cb, k)
+    assert _rank_topk(va, ia, vb, ib, k, plan.threads) is None
+    vals, idxs = np.concatenate([va, vb]), np.concatenate([ia, ib])
+    got_v, got_x = _smem_network(vals, idxs, plan.n)
+    rv, ri = topk_ref(torch.tensor(vals)[None],
+                      torch.tensor(idxs, dtype=torch.int32)[None], k)
+    np.testing.assert_array_equal(got_v[:k], rv[0].numpy())
+    np.testing.assert_array_equal(got_x[:k], ri[0].numpy())
+
+
+@pytest.mark.parametrize("ca,cb,k,route,threads,sort_lane", [
+    (768, 256, 768, "rank", 64, 4),      # SG beam: 81,920 rows
+    (256, 8, 256, "rank", 32, 1),        # SG and baton pool
+    (64, 256, 64, "smem", 256, 0),       # baton beam: b longer than a
+    (2000, 1000, 64, "smem", 1024, 0),   # b past the rank route's 256
+    (20, 0, 10, "warp", 32, 0),          # one list: plain top-k
+    (0, 20, 10, "warp", 32, 0),          # one list, given as b
+    (128, 4, 128, "rank", 32, 1),        # the RAG example's pool
+    (48, 192, 48, "smem", 128, 0),       # the quickstart's beam
+    (256, 256, 256, "rank", 64, 4),      # a and b of one length
+    (3000, 256, 100, "rank", 256, 1),    # the longest row the route takes
+])
+def test_topk_plan_routes_the_cells_shapes(ca, cb, k, route, threads,
+                                           sort_lane):
+    plan = topk_plan(ca, cb, k)
+    assert (plan.route, plan.threads, plan.sort_lane) == (
+        route, threads, sort_lane)
+    assert plan.threads * plan.per_lane == plan.n >= ca + cb
+    assert 32 <= plan.threads <= 1024
+    if route == "rank":
+        assert plan == rank_plan(ca, cb, k)
+    else:
+        assert plan.per_lane in (1, 2, 4)
+
+
+@pytest.mark.parametrize("ca,cb", [(768, 256), (256, 8), (64, 256),
+                                   (48, 192), (1, 256), (3839, 256),
+                                   (4095, 1)])
+def test_rank_plan_fits_the_launcher(ca, cb):
+    """Wherever the rank route takes a row (the network's shapes too,
+    which ``chip_smoke.py`` times it at), b fits its sort as ``topk.cu``'s
+    launcher requires: sort_lane 1, 2 or 4 over the CTA's threads."""
+    plan = rank_plan(ca, cb)
+    cbp = 1 << (cb - 1).bit_length()
+    assert plan.sort_lane in (1, 2, 4)
+    assert cbp <= plan.threads * plan.sort_lane
+    assert plan.threads * plan.per_lane == plan.n
+    assert 32 <= plan.threads <= 1024 and plan.threads & (plan.threads - 1) == 0
+
+
+@pytest.mark.parametrize("ca,cb", [(0, 8), (300, 0), (100, 257)])
+def test_rank_plan_refuses_what_the_route_does_not_take(ca, cb):
+    with pytest.raises(ValueError, match="rank route"):
+        rank_plan(ca, cb)
 
 
 _CTYPE = {"ptr": _build.ctypes.c_void_p, "int": _build.ctypes.c_int}
